@@ -1,0 +1,59 @@
+"""Batch-first helpers shared by the port's host-driven loops.
+
+The JAX package writes each solver for ONE instance and batches it with
+``jax.vmap``.  Under ``vmap`` a ``lax.while_loop`` runs until no lane wants
+another trip; the body runs on every lane and a lane whose condition is
+false keeps its state bit for bit.  The port writes the batch axis out
+instead: a loop body runs on every lane, :func:`select` keeps the lanes whose
+condition is false, and :func:`any_lane` is the loop's one host sync per trip
+(counted in ``any_lane.syncs``).
+
+Every tensor here carries the batch on its leading axis; a per-lane scalar
+has shape ``(B,)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def any_lane(mask: torch.Tensor) -> bool:
+    """True when any lane of ``mask`` is set: the one host sync of a loop
+    trip.  Each call adds one to ``any_lane.syncs``."""
+    any_lane.syncs += 1
+    return bool(mask.any().item())
+
+
+any_lane.syncs = 0
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane ``where``: ``mask`` (B,) against tensors whose leading axis is
+    the batch (the counterpart of ``jnp.where`` on a vmapped scalar)."""
+    extra = a.dim() - mask.dim()
+    return torch.where(mask.reshape(mask.shape + (1,) * extra), a, b)
+
+
+def amax0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.max(x, axis=-1, initial=0.0)``: an empty row gives 0
+    (``torch.amax`` raises on one)."""
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape[:-1])
+    return torch.clamp_min(torch.amax(x, dim=-1), 0.0)
+
+
+def amin_inf(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.min(x, axis=-1, initial=jnp.inf)``: an empty row gives +inf."""
+    if x.shape[-1] == 0:
+        return x.new_full(x.shape[:-1], float("inf"))
+    return torch.amin(x, dim=-1)
+
+
+def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product ``(B, m, n) @ (B, n) -> (B, m)``."""
+    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner product over the last axis."""
+    return (a * b).sum(-1)

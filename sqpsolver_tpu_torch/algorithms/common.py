@@ -1,0 +1,90 @@
+"""KKT / violation formulas (torch port of ``algorithms/common.py``).
+
+Every function reduces over the LAST axis, so it serves one instance or a
+batch with a leading instance axis alike.  Multiplier sign convention, as in
+the JAX package: stationarity is ``grad f + J^T lam + nu_U - nu_L = 0``.
+The Lanczos lambda_min bound (``hessian_shift="power"``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .._lanes import amax0, mv
+
+
+def constraint_violation(E, g_l, g_u):
+    """Per-row constraint violation max(E - g_u, g_l - E, 0)."""
+    return torch.clamp_min(torch.maximum(E - g_u, g_l - E), 0.0)
+
+
+def bound_violation(x, x_l, x_u):
+    """Per-variable bound violation."""
+    return torch.clamp_min(torch.maximum(x - x_u, x_l - x), 0.0)
+
+
+def norm_violations(E, g_l, g_u, x, x_l, x_u, ord=math.inf):
+    """p-norm of stacked constraint + bound violations (the SQP loop uses
+    ord=1)."""
+    viol = torch.cat(
+        [constraint_violation(E, g_l, g_u), bound_violation(x, x_l, x_u)], dim=-1
+    )
+    if ord == 1:
+        return viol.sum(-1)
+    if ord == math.inf:
+        return amax0(viol)
+    return torch.linalg.vector_norm(viol, ord=ord, dim=-1)
+
+
+def kt_residuals_from_parts(df, lam, mult_x_U, mult_x_L, jt_lam, row_norms):
+    """:func:`kt_residuals` from precomputed ``J^T lam`` and row norms."""
+    stat = df + jt_lam + mult_x_U - mult_x_L
+    res = amax0(torch.abs(stat))
+    scalar = torch.clamp_min(amax0(torch.abs(df)), 1.0)
+    scalar = torch.maximum(scalar, amax0(torch.abs(mult_x_U)))
+    scalar = torch.maximum(scalar, amax0(torch.abs(mult_x_L)))
+    scalar = torch.maximum(scalar, amax0(torch.abs(lam) * row_norms))
+    return res / scalar
+
+
+def kt_residuals(df, lam, mult_x_U, mult_x_L, jac):
+    """Normalized Kuhn-Tucker residual
+
+        || df + J^T lam + nu_U - nu_L ||_inf
+        -------------------------------------------------------------
+        max(1, ||df||_inf, ||nu_U||_inf, ||nu_L||_inf, max_i |lam_i| * ||J_i||_2)
+    """
+    row_norms = torch.sqrt(torch.sum(jac * jac, dim=-1))
+    return kt_residuals_from_parts(
+        df, lam, mult_x_U, mult_x_L, mv(jac.transpose(-1, -2), lam), row_norms
+    )
+
+
+def schur_cap_for(params, nlp) -> int:
+    """Resolve Parameters.schur_cap into a concrete IpmOptions.schur_cap:
+    the static equality count plus headroom for active inequalities (at
+    least 32 rows, at least a quarter of the inequality rows), rounded up to
+    a multiple of 8, and only where that keeps at most 3/4 of the rows.
+    Dense float32-factorized modes only."""
+    m = nlp.m
+    if (
+        params.schur_cap == 0
+        or params.kkt_structured
+        or not params.kkt_precision.startswith("mixed")
+        or m == 0
+    ):
+        return 0
+    if params.schur_cap > 0:
+        return min(params.schur_cap, m)
+    m_eq = int(
+        np.sum(
+            np.broadcast_to(np.asarray(nlp.g_l), (m,))
+            == np.broadcast_to(np.asarray(nlp.g_u), (m,))
+        )
+    )
+    cap = m_eq + max(32, (m - m_eq + 3) // 4)
+    cap = min(m, ((cap + 7) // 8) * 8)
+    return cap if cap <= int(0.75 * m) else 0

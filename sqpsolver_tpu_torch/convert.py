@@ -1,0 +1,55 @@
+"""Moving problem data and results between the JAX package and this port.
+
+In this system the problem data (bounds, start points, scenario loads) plays
+the part that weights play in a model: both packages must compute on the
+same numbers.  The functions here take plain arrays (anything
+``numpy.asarray`` accepts, e.g. the JAX package's ``NLPData`` fields) and
+return this package's tensors, and turn results back into numpy arrays.
+Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .nlp import NLPData
+
+
+def _tensor(a, dtype, device):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def nlp_data_to_torch(data, *, device="cpu", dtype=torch.float64) -> NLPData:
+    """An object with ``x_l``, ``x_u``, ``g_l``, ``g_u``, ``x0`` (and optional
+    ``theta`` dict and ``lam0``) of arrays -> :class:`NLPData` of tensors on
+    ``device`` in ``dtype``.  Leading batch axes carry over unchanged."""
+    theta = getattr(data, "theta", None)
+    lam0 = getattr(data, "lam0", None)
+    return NLPData(
+        x_l=_tensor(data.x_l, dtype, device),
+        x_u=_tensor(data.x_u, dtype, device),
+        g_l=_tensor(data.g_l, dtype, device),
+        g_u=_tensor(data.g_u, dtype, device),
+        x0=_tensor(data.x0, dtype, device),
+        theta=None if theta is None else theta_to_torch(theta, device=device, dtype=dtype),
+        lam0=None if lam0 is None else _tensor(lam0, dtype, device),
+    )
+
+
+def theta_to_torch(theta: dict, *, device="cpu", dtype=torch.float64) -> dict:
+    """A scenario-parameter dict of arrays -> dict of tensors."""
+    return {k: _tensor(v, dtype, device) for k, v in theta.items()}
+
+
+def result_to_numpy(result) -> dict:
+    """A result NamedTuple (this package's ``SqpResult``, or the JAX
+    package's) -> dict of numpy arrays; ``None`` fields are dropped."""
+    out = {}
+    for key, val in result._asdict().items():
+        if val is None or isinstance(val, dict):
+            continue
+        if torch.is_tensor(val):
+            val = val.detach().cpu().numpy()
+        out[key] = np.asarray(val)
+    return out
