@@ -11,10 +11,16 @@ Phases (any failure raises and the exit code is non-zero):
 1. print the card (``nvidia-smi`` name and power limit);
 2. build ``sqpsolver_tpu_torch/csrc/chol_tile.cu`` with ``nvcc`` for sm_90a;
 3. hold the Cholesky kernel against its plain PyTorch version on the card
-   at the slice's shapes (32x72x72 K, 32x96x96 capped Schur S) and at
-   256x128x128: max|dL| / max|L| <= 1e-5 and an exact-zero upper triangle;
-   an indefinite tile must give a non-finite factor.  Both are timed with
-   CUDA events (median of 30 calls);
+   at the slice's shapes (32x72x72 K, 32x96x96 capped Schur S), at
+   256x128x128 and at small and odd sizes (3x1x1, 5x7x7, 32x33x33,
+   32x127x127) that reach every width the kernel is compiled for and its
+   ragged edge: max|dL| / max|L| <= 1e-5 and an exact-zero upper triangle;
+   an indefinite tile must give a non-finite factor on that tile only.  At
+   the first three shapes the kernel, the plain version and one library call
+   that computes the same function (``torch.linalg.cholesky_ex``, a yardstick
+   that the package's kernel path never calls) are timed with CUDA events, and
+   the least time the card could take (``bound_ms``) is computed from the
+   shape;
 4. run the slice -- batched ACOPF on MATPOWER case30 with 32 load scenarios,
    dense SQP-TR, mixed_ir factorizations through the kernel, float64 state --
    through ``make_batch_solver`` on ``cuda``; every lane must converge
@@ -26,9 +32,12 @@ Phases (any failure raises and the exit code is non-zero):
    printing the device time by kernel and the device's busy share of the wall
    time, and writing the summary as JSON to ``PATH``.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is the kernels' JSON record.  This script imports neither JAX
-nor the JAX package.
+Standard output ends with these lines, in this order: the kernel's share of
+its bound and its ratio to the library call at the slice's two shapes; the
+kernels' JSON record ``{"kernels": [...]}``; the card's name and power limit
+as ``nvidia-smi`` gives them; and last ``{"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": ...}}``.  This script imports neither JAX nor
+the JAX package.
 """
 
 from __future__ import annotations
@@ -44,8 +53,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1.0e-5  # max|dL| / max|L|, float32 factors of n <= 128
 OBJ_RTOL = 1.0e-6  # per-lane objective against the JAX anchor
-SHAPES = ((32, 72), (32, 96), (256, 128))
-TIMED = ((32, 72), (32, 96))
+SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
+TIMED = SLICE_SHAPES + ((256, 128),)
+SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOP_PER_S = 67.0e12  # H100 SXM data sheet, float32 outside the tensor cores
 
 
 def log(*args):
@@ -64,30 +76,60 @@ def spd_batch(torch, rng, batch, n):
     return torch.tensor(M, dtype=torch.float32, device="cuda")
 
 
-def cuda_ms(torch, fn, arg, reps=30):
-    """Median milliseconds of ``fn(arg)`` over ``reps`` calls (CUDA events),
-    after 3 warm-up calls."""
+def cuda_ms(torch, fn, arg, reps=30, inner=1):
+    """Median milliseconds of one ``fn(arg)`` over ``reps`` windows of
+    ``inner`` calls each (CUDA events), after 3 warm-up calls.
+
+    With ``inner == 1`` a window is one call as a caller makes it, host
+    enqueue time included: right for the plain version, itself a host loop of
+    launches.  With ``inner > 1`` the calls of a window are enqueued while the
+    card is still busy with a large matrix product enqueued just before the
+    first event, so they run back to back and the window holds device time
+    only, as a profile counts it.  A window in which the card caught up
+    with the host all the same (``fn`` waits for the card, or enqueues
+    slowly) holds host time too; their number is logged."""
     for _ in range(3):
         fn(arg)
+    plug = torch.empty((4096, 4096), device="cuda").normal_() if inner > 1 else None
     times = []
+    drained = 0
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if plug is not None:
+            for _ in range(3):
+                torch.mm(plug, plug)
         start.record()
-        fn(arg)
+        for _ in range(inner):
+            fn(arg)
         stop.record()
+        drained += plug is not None and start.query()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
+    if drained:
+        log(f"cuda_ms: {getattr(fn, '__name__', fn)}: the card drained its queue in "
+            f"{drained} of {reps} windows; the time holds host time too")
     return statistics.median(times)
 
 
-def check_kernel(torch, chol_blocked):
+def chol_bound(batch, n):
+    """Least milliseconds the card could take to factor (batch, n, n) float32
+    tiles, and what binds: every input byte read once and every output byte
+    written once over the memory rate, against batch * n^3 / 3 operations over
+    the float32 rate."""
+    bytes_ms = 2 * batch * n * n * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = batch * n**3 / 3 / FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def check_kernel(torch, chol_blocked, card):
     """Phase 3: kernel against plain, on the card.  Returns the kernel record."""
     import numpy as np
 
     chol_tile, plain = chol_blocked.chol_tile, chol_blocked.chol_tile_plain
     rng = np.random.default_rng(20240901)
     worst = 0.0
+    identical = True
     for batch, n in SHAPES:
         M = spd_batch(torch, rng, batch, n)
         L = chol_tile(M)
@@ -101,6 +143,8 @@ def check_kernel(torch, chol_blocked):
         if not (torch.isfinite(L).all().item() and rel <= KERNEL_TOL and upper == 0.0):
             raise AssertionError(f"kernel disagrees with plain at ({batch},{n},{n})")
         worst = max(worst, err)
+        identical = identical and torch.equal(L, Lp)
+    log(f"kernel bit-identical to plain at every shape: {identical}")
     M = spd_batch(torch, rng, 4, 96)
     M[1, 5, 5] = -1.0e3
     L = chol_tile(M)
@@ -111,10 +155,18 @@ def check_kernel(torch, chol_blocked):
     timings = {}
     for batch, n in TIMED:
         M = spd_batch(torch, rng, batch, n)
-        ms = cuda_ms(torch, chol_tile, M)
-        plain_ms = cuda_ms(torch, plain, M)
-        timings[f"{batch}x{n}x{n}"] = {"ms": ms, "plain_ms": plain_ms}
-        log(f"time ({batch},{n},{n}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        ms = cuda_ms(torch, chol_tile, M, inner=20)
+        library_ms = cuda_ms(torch, torch.linalg.cholesky_ex, M, inner=20)
+        plain_ms = cuda_ms(torch, plain, M, reps=10)
+        bound_ms, bound_by = chol_bound(batch, n)
+        timings[f"{batch}x{n}x{n}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log(f"time ({batch},{n},{n}) on {card}: kernel {ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}), library cholesky_ex "
+            f"{library_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    main = timings["32x96x96"]
     return {
         "name": "chol_tile",
         "route": "cuda",
@@ -122,8 +174,8 @@ def check_kernel(torch, chol_blocked):
         "replaces": "sqpsolver_tpu/ops/chol_blocked.py:116",
         "launches": None,
         "max_abs_err": worst,
-        "ms": timings["32x96x96"]["ms"],
-        "plain_ms": timings["32x96x96"]["plain_ms"],
+        **main,
+        "bit_identical": identical,
         "timings": timings,
     }
 
@@ -149,7 +201,7 @@ def run_slice(torch, record):
     solver = make_batch_solver(nlp, params)
 
     def solve():
-        data = batch_data(nlp, batch, theta=theta, device="cuda")
+        data = batch_data(nlp, batch, theta=theta)  # on the card by default
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = solver(data)
@@ -238,6 +290,9 @@ def profile_slice(torch, solve, wall_plain, trips, out_path):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     for name, (cnt, tot) in top:
         log(f"profile kernel: {tot / 1e3:10.3f} ms {cnt:8d}x  {name[:110]}")
+    hand = {k: v for k, v in by_name.items() if "chol_tile" in k.lower()}
+    for name, (cnt, tot) in sorted(hand.items()):
+        log(f"profile hand kernel: {tot / 1e3:10.3f} ms {cnt:8d}x  {name[-60:]}")
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as fh:
         json.dump({
@@ -245,6 +300,7 @@ def profile_slice(torch, solve, wall_plain, trips, out_path):
             "device_events": n_kernels,
             "families": {k: {"count": c, "ms": t / 1e3} for k, (c, t) in by_family.items()},
             "top_kernels": [{"name": k, "count": c, "ms": t / 1e3} for k, (c, t) in top],
+            "hand_kernels": [{"name": k, "count": c, "ms": t / 1e3} for k, (c, t) in hand.items()],
         }, fh, indent=1)
 
 
@@ -279,13 +335,17 @@ def main() -> int:
     log(f"build: {os.path.relpath(info.path, ROOT)} in {info.seconds:.2f} s"
         + ("" if info.seconds else " (already built from this source)"))
     for line in info.log.splitlines():
-        if "registers" in line or "smem" in line or "Compiling" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"build: {line.strip()}")
 
-    record = check_kernel(torch, chol_blocked)
+    record = check_kernel(torch, chol_blocked, card)
     solve, wall, trips = run_slice(torch, record)
     if args.profile:
         profile_slice(torch, solve, wall, trips, args.profile)
+    for batch, n in SLICE_SHAPES:
+        t = record["timings"][f"{batch}x{n}x{n}"]
+        log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "
+            f"its bound, {t['ms'] / t['library_ms']:.3f} of the library call's time")
     log(json.dumps({"kernels": [record]}))
     log(card)
     log(json.dumps({

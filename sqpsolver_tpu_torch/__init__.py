@@ -6,6 +6,11 @@ GPU.  It imports torch and numpy only.  The factorization on the KKT path
 is a hand-written CUDA kernel (``csrc/chol_tile.cu``, built with ``nvcc`` at
 first use); on the CPU the same algorithm runs in plain torch ops.
 
+Tensors go to the CUDA card unless the caller names another device:
+``batch_data``, ``NLP.data``, ``nlp_data_to_torch`` and ``theta_to_torch``
+take ``device=None`` (the card) and raise where there is none; pass
+``device="cpu"`` to run on the CPU.  The solver runs where its data lies.
+
 Quick start (batched ACOPF on case30, on the GPU)::
 
     import torch
@@ -15,8 +20,7 @@ Quick start (batched ACOPF on case30, on the GPU)::
 
     case = load_case("case30")
     nlp = acopf_polar(case)
-    data = batch_data(nlp, 32, theta=load_scenarios(case, 32, seed=7, spread=0.03),
-                      device="cuda")
+    data = batch_data(nlp, 32, theta=load_scenarios(case, 32, seed=7, spread=0.03))
     params = Parameters(kkt_precision="mixed_ir", hessian_shift="ladder",
                         kkt_backend="pallas", qp_rescue=False,
                         init_projection="off", OutputFlag=0)

@@ -13,17 +13,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .nlp import NLPData
+from .nlp import NLPData, resolve_device
 
 
 def _tensor(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def nlp_data_to_torch(data, *, device="cpu", dtype=torch.float64) -> NLPData:
+def nlp_data_to_torch(data, *, device=None, dtype=torch.float64) -> NLPData:
     """An object with ``x_l``, ``x_u``, ``g_l``, ``g_u``, ``x0`` (and optional
     ``theta`` dict and ``lam0``) of arrays -> :class:`NLPData` of tensors on
-    ``device`` in ``dtype``.  Leading batch axes carry over unchanged."""
+    ``device`` (``None``: the CUDA card; ``"cpu"`` must be asked for) in
+    ``dtype``.  Leading batch axes carry over unchanged."""
+    device = resolve_device(device)
     theta = getattr(data, "theta", None)
     lam0 = getattr(data, "lam0", None)
     return NLPData(
@@ -37,8 +39,10 @@ def nlp_data_to_torch(data, *, device="cpu", dtype=torch.float64) -> NLPData:
     )
 
 
-def theta_to_torch(theta: dict, *, device="cpu", dtype=torch.float64) -> dict:
-    """A scenario-parameter dict of arrays -> dict of tensors."""
+def theta_to_torch(theta: dict, *, device=None, dtype=torch.float64) -> dict:
+    """A scenario-parameter dict of arrays -> dict of tensors on ``device``
+    (``None``: the CUDA card)."""
+    device = resolve_device(device)
     return {k: _tensor(v, dtype, device) for k, v in theta.items()}
 
 

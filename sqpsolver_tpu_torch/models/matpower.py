@@ -29,12 +29,8 @@ _F_BUS, _T_BUS, _BR_R, _BR_X, _BR_B, _RATE_A = 0, 1, 2, 3, 4, 5
 _TAP, _SHIFT, _BR_STATUS = 8, 9, 10
 _COST_MODEL, _NCOST = 0, 3
 
-#: the vendored ``.m`` files live in the JAX package's data directory; the
-#: port reads them by path, from the repo root above this package
-DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "sqpsolver_tpu/models/data",
-)
+#: the vendored ``.m`` files are this package's own copies (``data/*.m``)
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 
 def _extract_matrix(text: str, name: str) -> np.ndarray:
@@ -62,8 +58,7 @@ def _extract_scalar(text: str, name: str, default=None) -> float:
     return float(m.group(1))
 
 
-#: vendored standard public cases (sqpsolver_tpu/models/data/*.m, read by
-#: path: the JAX package's data directory is shared, not imported) and the
+#: vendored standard public cases (``data/*.m`` of this package) and the
 #: published MATPOWER AC-OPF optimal objective values ($/h) used as
 #: regression anchors (VERDICT r1 item 3)
 VENDORED_OPTIMA = {

@@ -117,8 +117,10 @@ class NLP:
         )
 
     # ------------------------------------------------------ data ----------
-    def data(self, dtype=torch.float64, device="cpu", theta=None) -> "NLPData":
-        """The numeric problem data of one instance as tensors."""
+    def data(self, dtype=torch.float64, device=None, theta=None) -> "NLPData":
+        """The numeric problem data of one instance as tensors on ``device``
+        (``None``: the CUDA card, see :func:`resolve_device`)."""
+        device = resolve_device(device)
 
         def conv(a, size):
             arr = np.broadcast_to(np.asarray(a, dtype=np.float64), (size,))
@@ -139,6 +141,20 @@ class NLP:
             x0=conv(self.x0, self.n),
             theta=theta,
         )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point places its tensors on.  ``None`` means the
+    CUDA card; without one this raises rather than carry on on the CPU, which
+    a caller asks for with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available and none was named: this package runs "
+            'on the GPU by default; pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass

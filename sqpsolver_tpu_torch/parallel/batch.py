@@ -16,7 +16,7 @@ import torch
 
 from ..algorithms.sqp_tr import SqpResult, make_solver
 from ..convert import theta_to_torch
-from ..nlp import NLP, NLPData
+from ..nlp import NLP, NLPData, resolve_device
 from ..parameters import Parameters
 
 
@@ -27,13 +27,17 @@ def batch_data(
     theta=None,
     x0=None,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ) -> NLPData:
     """Tile an NLP's data along a leading batch axis on ``device``.
 
-    ``theta`` (a dict of arrays with leading axis ``batch``) and/or ``x0``
-    (per-instance starts, (batch, n)) override the tiled defaults.
+    ``device=None`` is the CUDA card, and raises where there is none; the CPU
+    is used only when asked for (``device="cpu"``).  The solver runs where
+    the data lies.  ``theta`` (a dict of arrays with leading axis ``batch``)
+    and/or ``x0`` (per-instance starts, (batch, n)) override the tiled
+    defaults.
     """
+    device = resolve_device(device)
     base = nlp.data(dtype=dtype, device=device)
 
     def tile(a):

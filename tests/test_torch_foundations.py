@@ -145,7 +145,7 @@ def test_convert_round_trip():
         x0=jnp.asarray(rng.standard_normal((2, 4))),
         theta={"pd": jnp.asarray(rng.standard_normal((2, 5)))},
     )
-    td = convert.nlp_data_to_torch(jd, dtype=torch.float64)
+    td = convert.nlp_data_to_torch(jd, dtype=torch.float64, device="cpu")
     for name in ("x_l", "x_u", "g_l", "g_u", "x0"):
         t = getattr(td, name)
         assert t.dtype == torch.float64 and t.device.type == "cpu"

@@ -81,7 +81,7 @@ def test_ad_bundle_matches_jax(name):
 def test_nlp_data_and_initial_point():
     from sqpsolver_tpu_torch.nlp import NLPData, initial_point
 
-    d = t_toy.toy_nlp().data(dtype=torch.float32)
+    d = t_toy.toy_nlp().data(dtype=torch.float32, device="cpu")
     assert d.x0.dtype == torch.float32 and d.x0.shape == (2,)
     d = NLPData(
         x_l=torch.tensor([-1.0, 0.0]), x_u=torch.tensor([1.0, 0.5]),

@@ -49,7 +49,7 @@ def test_toy_matches_jax(projection, shift):
     j_nlp = j_toy.toy_nlp()
     jr = j_batch.make_batch_solver(j_nlp, JParameters(**kw))(j_batch.batch_data(j_nlp, 2))
     t_nlp = t_toy.toy_nlp()
-    tr = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(tp.batch_data(t_nlp, 2))
+    tr = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(tp.batch_data(t_nlp, 2, device="cpu"))
     np.testing.assert_array_equal(tr.status.numpy(), np.asarray(jr.status))
     np.testing.assert_array_equal(tr.iterations.numpy(), np.asarray(jr.iterations))
     np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=1e-9)
@@ -65,7 +65,7 @@ def test_solve_restores_float32_matmul_precision():
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        tr = solver(tp.batch_data(t_nlp, 2))
+        tr = solver(tp.batch_data(t_nlp, 2, device="cpu"))
         assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision(before)
@@ -95,7 +95,7 @@ def test_soc_maratos_matches_jax(use_soc):
         j_batch.batch_data(j_nlp, 2, x0=x0)
     )
     t_nlp = maratos(t_build, torch)
-    tr = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(tp.batch_data(t_nlp, 2, x0=x0))
+    tr = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(tp.batch_data(t_nlp, 2, x0=x0, device="cpu"))
     for field in ("status", "iterations", "n_reject", "n_soc_accept", "n_accept"):
         np.testing.assert_array_equal(
             getattr(tr, field).numpy(), np.asarray(getattr(jr, field)), err_msg=field
@@ -128,7 +128,7 @@ def test_feasibility_restoration_matches_jax():
         j_batch.batch_data(j_nlp, 3, x0=x0)
     )
     t_nlp = infeasible(t_build, torch)
-    tr = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(tp.batch_data(t_nlp, 3, x0=x0))
+    tr = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(tp.batch_data(t_nlp, 3, x0=x0, device="cpu"))
     for field in ("status", "iterations", "n_fr_iters", "n_reject", "qp_iters_total"):
         np.testing.assert_array_equal(
             getattr(tr, field).numpy(), np.asarray(getattr(jr, field)), err_msg=field
@@ -150,7 +150,7 @@ def slice_case5():
     )
     t_nlp = t_acopf.acopf_polar(t_case)
     tr = tp.make_batch_solver(t_nlp, tp.Parameters(**params))(
-        tp.batch_data(t_nlp, batch, theta=theta)
+        tp.batch_data(t_nlp, batch, theta=theta, device="cpu")
     )
     assert params["kkt_backend"] == "pallas" and params["kkt_precision"] == "mixed_ir"
     return tp.result_to_numpy(jr), tp.result_to_numpy(tr)
