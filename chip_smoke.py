@@ -3,37 +3,60 @@
 Usage, from the repository root, on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA::
 
-    python3 chip_smoke.py            # build, check the kernel, run the slice
-    python3 chip_smoke.py --profile out/profile_slice.json  # + a profiled run
+    python3 chip_smoke.py            # build, check the kernel, run both paths
+    python3 chip_smoke.py --profile out/profile_slice.json  # + a profiled case30 run
+    python3 chip_smoke.py --profile118 out/profile_case118.json  # + a profiled case118 run, cut to 8 iterations
+    python3 chip_smoke.py --paths case118   # a partial run: no closing "ok" line
 
 Phases (any failure raises and the exit code is non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit);
 2. build ``sqpsolver_tpu_torch/csrc/chol_tile.cu`` with ``nvcc`` for sm_90a;
 3. hold the Cholesky kernel against its plain PyTorch version on the card
-   at the slice's shapes (32x72x72 K, 32x96x96 capped Schur S), at
-   256x128x128 and at small and odd sizes (3x1x1, 5x7x7, 32x33x33,
-   32x127x127) that reach every width the kernel is compiled for and its
-   ragged edge: max|dL| / max|L| <= 1e-5 and an exact-zero upper triangle;
-   an indefinite tile must give a non-finite factor on that tile only.  At
-   the first three shapes the kernel, the plain version and one library call
+   at the case30 path's shapes (32x72x72 K, 32x96x96 capped Schur S), at
+   256x128x128, at the case118 path's diagonal blocks (16x128x128, and the
+   ragged last panels 16x88x88 of K and 16x80x80 of S) and at small and odd
+   sizes (3x1x1, 5x7x7, 32x33x33, 32x127x127) that reach every width the
+   kernel is compiled for and its ragged edge: max|dL| / max|L| <= 1e-5 and
+   an exact-zero upper triangle; an indefinite tile must give a non-finite
+   factor on that tile only.  At the first six shapes the kernel, the plain version and one library call
    that computes the same function (``torch.linalg.cholesky_ex``, a yardstick
    that the package's kernel path never calls) are timed with CUDA events, and
    the least time the card could take (``bound_ms``) is computed from the
    shape;
-4. run the slice -- batched ACOPF on MATPOWER case30 with 32 load scenarios,
+4. hold the 128-panel ``cholesky_blocked`` and ``tri_inv_blocked`` at
+   16x344x344 (case118's K) and 16x336x336 (its capped S) against float64
+   ``torch.linalg.cholesky`` / the float64 inverse of the same matrices
+   (max|dL| / max|L| <= 1e-5; max|L Linv - I| <= 1e-4), with the kernel's
+   launch count rising by three per factorization and an indefinite matrix
+   whose bad pivot lies in the third panel giving a non-finite factor on
+   that lane only; time both against one library call each
+   (``torch.linalg.cholesky_ex``, ``torch.linalg.solve_triangular(L, I)``)
+   and show what TF32 products would do to one n = 344 factor;
+5. run the case30 path -- batched ACOPF on MATPOWER case30 with 32 load scenarios,
    dense SQP-TR, mixed_ir factorizations through the kernel, float64 state --
    through ``make_batch_solver`` on ``cuda``; every lane must converge
    (status 0, 1 or 6) to within 1e-6 relative of the per-lane objective the
    JAX package reached on the same data
    (``sqpsolver_tpu_torch/data/anchor_case30_b32.json``), and the kernel's
    launch count over that run must be positive;
-5. with ``--profile PATH``: one more slice run under ``torch.profiler``,
-   printing the device time by kernel and the device's busy share of the wall
-   time, and writing the summary as JSON to ``PATH``.
+6. run the case118 path -- IEEE case118 (n=344, m=609, Schur cap 336) with 16
+   load scenarios through ``make_chunked_batch_solver(sub_batch=128,
+   rescue_fallback=True)`` on ``cuda``: a float32-factor first pass, then the
+   lanes that ended in ``Error_In_Step_Computation`` re-solved with the
+   float64 IPM phase 2.  ``x`` must be finite of shape (16, 344); every lane
+   the JAX package solved (``anchor_case118_b16.json``) must be solved, to
+   within 1e-6 relative of its objective; the float64 phase must take at
+   least one trip; the kernel's launch count must be positive (three per
+   factorization: both numbers are printed);
+7. with ``--profile PATH`` / ``--profile118 PATH``: one more run of that path
+   under ``torch.profiler`` (case118 cut to ``--profile118-iters`` SQP
+   iterations: a whole solve is millions of device events), printing the
+   device time by kernel and the device's busy share of the wall time, and
+   writing the summary as JSON to ``PATH``.
 
 Standard output ends with these lines, in this order: the kernel's share of
-its bound and its ratio to the library call at the slice's two shapes; the
+its bound and its ratio to the library call at the two paths' five shapes; the
 kernels' JSON record ``{"kernels": [...]}``; the card's name and power limit
 as ``nvidia-smi`` gives them; and last ``{"ok": true, "device": {"platform":
 "gpu", "kind": ..., "count": ...}}``.  This script imports neither JAX nor
@@ -53,8 +76,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1.0e-5  # max|dL| / max|L|, float32 factors of n <= 128
 OBJ_RTOL = 1.0e-6  # per-lane objective against the JAX anchor
+INVERSE_TOL = 1.0e-4  # max|L Linv - I| of the blocked inverse, float32
+BLOCKED = ((16, 344), (16, 336))  # K and the capped Schur S of case118 b16
 SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
-TIMED = SLICE_SHAPES + ((256, 128),)
+PANEL_SHAPES = ((16, 128), (16, 88), (16, 80))  # case118 b16: K = 128+128+88, S = 128+128+80
+TIMED = SLICE_SHAPES + ((256, 128),) + PANEL_SHAPES
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67.0e12  # H100 SXM data sheet, float32 outside the tensor cores
@@ -76,15 +102,15 @@ def spd_batch(torch, rng, batch, n):
     return torch.tensor(M, dtype=torch.float32, device="cuda")
 
 
-def cuda_ms(torch, fn, arg, reps=30, inner=1):
+def cuda_ms(torch, fn, arg, reps=30, inner=1, plug_products=3):
     """Median milliseconds of one ``fn(arg)`` over ``reps`` windows of
     ``inner`` calls each (CUDA events), after 3 warm-up calls.
 
     With ``inner == 1`` a window is one call as a caller makes it, host
     enqueue time included: right for the plain version, itself a host loop of
     launches.  With ``inner > 1`` the calls of a window are enqueued while the
-    card is still busy with a large matrix product enqueued just before the
-    first event, so they run back to back and the window holds device time
+    card is still busy with ``plug_products`` large matrix products enqueued
+    just before the first event, so they run back to back and the window holds device time
     only, as a profile counts it.  A window in which the card caught up
     with the host all the same (``fn`` waits for the card, or enqueues
     slowly) holds host time too; their number is logged."""
@@ -97,7 +123,7 @@ def cuda_ms(torch, fn, arg, reps=30, inner=1):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         if plug is not None:
-            for _ in range(3):
+            for _ in range(plug_products):
                 torch.mm(plug, plug)
         start.record()
         for _ in range(inner):
@@ -172,12 +198,85 @@ def check_kernel(torch, chol_blocked, card):
         "route": "cuda",
         "source": "sqpsolver_tpu_torch/csrc/chol_tile.cu",
         "replaces": "sqpsolver_tpu/ops/chol_blocked.py:116",
-        "launches": None,
+        "launches": 0,
+        "launches_by_path": {},
         "max_abs_err": worst,
         **main,
         "bit_identical": identical,
         "timings": timings,
     }
+
+
+def check_blocked(torch, chol_blocked, card):
+    """Phase 4: the 128-panel factorization and inverse at case118's sizes."""
+    import numpy as np
+
+    chol_tile = chol_blocked.chol_tile
+    cholesky_blocked, tri_inv_blocked = chol_blocked.cholesky_blocked, chol_blocked.tri_inv_blocked
+    rng = np.random.default_rng(20240902)
+    out = {}
+    for batch, n in BLOCKED:
+        M = spd_batch(torch, rng, batch, n)
+        before = chol_tile.launches
+        L = cholesky_blocked(M)
+        launched = chol_tile.launches - before
+        L64 = torch.linalg.cholesky(M.double())
+        rel = ((L - L64).abs().max() / L64.abs().max()).item()
+        upper = torch.triu(L, diagonal=1).abs().max().item()
+        X = tri_inv_blocked(L)
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        inv_err = (L.double() @ X.double() - eye).abs().max().item()
+        x_rel = ((X - torch.linalg.inv(L64)).abs().max() / X.abs().max()).item()
+        log(f"blocked ({batch},{n},{n}): cholesky_blocked max|dL|/max|L| {rel:.3e} (tol "
+            f"{KERNEL_TOL:g}) against float64, max|upper| {upper}, {launched} chol_tile "
+            f"launches; tri_inv_blocked max|L Linv - I| {inv_err:.3e} (tol {INVERSE_TOL:g}), "
+            f"max|dX|/max|X| {x_rel:.3e}")
+        if not (rel <= KERNEL_TOL and upper == 0.0 and inv_err <= INVERSE_TOL):
+            raise AssertionError(f"blocked routines off at ({batch},{n},{n})")
+        if launched != 3:
+            raise AssertionError(f"cholesky_blocked launched {launched} tiles at n={n}, not 3")
+        bad = M[:4].clone()
+        bad[2, 300, 300] = -1.0e3  # a bad pivot in the third panel
+        finite = torch.isfinite(cholesky_blocked(bad)).flatten(1).all(-1).tolist()
+        if finite != [True, True, False, True]:
+            raise AssertionError(f"indefinite third panel at n={n}: finite lanes {finite}")
+        eye32 = torch.eye(n, device="cuda").expand(batch, n, n).contiguous()
+
+        def solve_triangular(A):
+            return torch.linalg.solve_triangular(A, eye32, upper=False)
+
+        # device times: each routine is ~70 launches, so ten calls need a
+        # longer plug to stay queued behind than one kernel launch does
+        timed = dict(reps=15, inner=10, plug_products=12)
+        times = {
+            "cholesky_blocked_ms": cuda_ms(torch, cholesky_blocked, M, **timed),
+            "cholesky_ex_ms": cuda_ms(torch, torch.linalg.cholesky_ex, M, **timed),
+            "tri_inv_blocked_ms": cuda_ms(torch, tri_inv_blocked, L, **timed),
+            "solve_triangular_ms": cuda_ms(torch, solve_triangular, L, **timed),
+            "cholesky_blocked_alone_ms": cuda_ms(torch, cholesky_blocked, M, reps=15),
+            "tri_inv_blocked_alone_ms": cuda_ms(torch, tri_inv_blocked, L, reps=15),
+        }
+        out[f"{batch}x{n}x{n}"] = times
+        log(f"blocked ({batch},{n},{n}) on {card}: indefinite third panel non-finite on its "
+            f"lane only; device time: cholesky_blocked {times['cholesky_blocked_ms']:.4f} ms "
+            f"against cholesky_ex {times['cholesky_ex_ms']:.4f} ms; tri_inv_blocked "
+            f"{times['tri_inv_blocked_ms']:.4f} ms against solve_triangular(L, I) "
+            f"{times['solve_triangular_ms']:.4f} ms; one call alone, host enqueue time "
+            f"included: cholesky_blocked {times['cholesky_blocked_alone_ms']:.4f} ms, "
+            f"tri_inv_blocked {times['tri_inv_blocked_alone_ms']:.4f} ms")
+    # what TF32 products would cost one n = 344 factor (not a gate: the
+    # solver and this script keep float32 products true float32)
+    M = spd_batch(torch, rng, *BLOCKED[0])
+    L64 = torch.linalg.cholesky(M.double())
+    errs = {}
+    for name, tf32 in (("off", False), ("on", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        errs[name] = ((cholesky_blocked(M) - L64).abs().max() / L64.abs().max()).item()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out["tf32"] = errs
+    log(f"blocked (16,344,344): max|dL|/max|L| with TF32 products off {errs['off']:.3e}, "
+        f"on {errs['on']:.3e}")
+    return out
 
 
 def run_slice(torch, record):
@@ -215,7 +314,8 @@ def run_slice(torch, record):
     out, wall = solve()
     launches = chol_tile.launches
     syncs = any_lane.syncs - syncs0
-    record["launches"] = launches
+    record["launches"] += launches
+    record["launches_by_path"]["case30_b32"] = launches
 
     status = out.status.cpu().numpy()
     obj = out.obj_val.cpu().numpy()
@@ -245,6 +345,120 @@ def run_slice(torch, record):
     return solve, wall, trips
 
 
+def case118_solver(torch, max_iter=None):
+    """The case118 path's configuration from its anchor file, through the
+    port's public entry points; ``max_iter`` cuts the depth (the profile)."""
+    from sqpsolver_tpu_torch import Parameters, batch_data, make_chunked_batch_solver
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu_torch.models.matpower import load_case
+
+    with open(os.path.join(ROOT, "sqpsolver_tpu_torch", "data", "anchor_case118_b16.json")) as fh:
+        anchor = json.load(fh)
+    case = load_case(anchor["case"])
+    nlp = acopf_polar(case)
+    batch = anchor["batch"]
+    theta = load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
+    kw = dict(anchor["params"], **({} if max_iter is None else {"max_iter": max_iter}))
+    log(f"case118: {case.name} n={nlp.n} m={nlp.m} batch={batch} chunked={anchor['chunked']} "
+        f"params={kw}")
+    solver = make_chunked_batch_solver(nlp, Parameters(**kw), **anchor["chunked"])
+
+    def solve():
+        data = batch_data(nlp, batch, theta=theta)  # on the card by default
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solver(data)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    return anchor, nlp, solver, solve
+
+
+def run_case118(torch, record):
+    """Phase 6: the dense case118 path through the chunked solver with its
+    rescue fallback."""
+    import numpy as np
+
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, cholesky_blocked
+    from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
+
+    anchor, nlp, solver, solve = case118_solver(torch)
+    batch = anchor["batch"]
+    chol_tile.launches = 0
+    calls0 = cholesky_blocked.calls
+    syncs0 = any_lane.syncs
+    trips0 = dict(solve_qp.loop_trips)
+    secs0 = dict(solve_qp.phase_seconds)
+    out, wall = solve()
+    launches = chol_tile.launches
+    calls = cholesky_blocked.calls - calls0
+    stats = dict(solver.stats)
+    rounds = stats["rounds"] + stats["fallback_rounds"]
+    syncs = any_lane.syncs - syncs0 + rounds
+    trips = {k: solve_qp.loop_trips[k] - trips0[k] for k in trips0}
+    secs = {k: solve_qp.phase_seconds[k] - secs0[k] for k in secs0}
+    record["launches"] += launches
+    record["launches_by_path"]["case118_b16"] = launches
+
+    status = out.status.cpu().numpy()
+    obj = out.obj_val.cpu().numpy()
+    ref_status = np.asarray(anchor["lanes"]["status"])
+    ref = np.asarray(anchor["lanes"]["obj"])
+    ref_ok = np.isin(ref_status, [0, 1, 6])
+    ok = np.isin(status, [0, 1, 6])
+    rel = np.abs(obj - ref) / np.abs(ref)
+    iters = int(out.iterations.sum().item())
+    lane_trips = int(out.qp_iters_total.sum().item())
+    n_ok = int(ok.sum())
+    log(f"case118: wall {wall:.4f} s, {iters} SQP iterations ({iters / wall:.2f} SQP-iter/s), "
+        f"{n_ok}/{batch} solved ({n_ok / wall:.4f} solves/s), {lane_trips} lane-IPM-trips "
+        f"(a rescued QP counts its float64 trips only), {rounds} rounds "
+        f"({stats['rounds']} first pass, {stats['fallback_rounds']} fallback), {syncs} host "
+        f"syncs, fallback lanes {stats['fallback_lanes']}")
+    log(f"case118: batched IPM trips phase 1 (float32 factors) {trips[1]} in {secs[1]:.3f} s, "
+        f"phase 2 (float64 factors) {trips[2]} in {secs[2]:.3f} s; {launches} chol_tile "
+        f"launches over {calls} factorizations ({launches / max(calls, 1):.3f} per "
+        f"factorization; K and S both span three 128-panels)")
+    log(f"case118: JAX anchor {int(ref_ok.sum())}/{batch} solved, "
+        f"{anchor['totals']['iterations']} iterations, fallback lanes "
+        f"{anchor['fallback_lanes']} ({anchor['reference']['platform']}, kkt_backend="
+        f"{anchor['reference']['kkt_backend']}); statuses port {status.tolist()} "
+        f"anchor {ref_status.tolist()}")
+    log(f"case118: objective rel. diff to the anchor over the {int(ref_ok.sum())} lanes it "
+        f"solved: max {rel[ref_ok].max():.3e} (tol {OBJ_RTOL:g}); over the lanes both solved: "
+        f"max {rel[ref_ok & ok].max():.3e}")
+    if out.x.shape != (batch, nlp.n) or not torch.isfinite(out.x).all().item():
+        raise AssertionError("case118: x is not finite of shape (batch, n)")
+    if not ok[ref_ok].all():
+        raise AssertionError(
+            f"case118: lanes the anchor solved and the port did not: {np.nonzero(ref_ok & ~ok)[0]}"
+        )
+    if not (rel[ref_ok] <= OBJ_RTOL).all():
+        raise AssertionError(f"case118: lanes off the anchor: {np.nonzero(ref_ok & (rel > OBJ_RTOL))[0]}")
+    if launches <= 0:
+        raise AssertionError("case118: the Cholesky kernel was never launched")
+    if trips[2] <= 0:
+        raise AssertionError("case118: the float64 IPM phase 2 took no trip")
+
+
+def profile_case118(torch, max_iter, out_path):
+    """Phase 7 for case118: the path cut to ``max_iter`` SQP iterations (a
+    whole solve is millions of device events), once plain and once under the
+    profiler."""
+    from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
+
+    _, _, _, solve = case118_solver(torch, max_iter=max_iter)
+    trips0 = dict(solve_qp.loop_trips)
+    secs0 = dict(solve_qp.phase_seconds)
+    out, wall = solve()
+    trips = {k: solve_qp.loop_trips[k] - trips0[k] for k in trips0}
+    secs = {k: solve_qp.phase_seconds[k] - secs0[k] for k in secs0}
+    log(f"profile case118, depth cut to max_iter={max_iter}: wall {wall:.3f} s; batched IPM "
+        f"trips phase 1 {trips[1]} in {secs[1]:.3f} s, phase 2 {trips[2]} in {secs[2]:.3f} s")
+    profile_slice(torch, solve, wall, int(out.qp_iters_total.sum().item()), out_path)
+
+
 def _kernel_family(name):
     low = name.lower()
     if "chol_tile" in low:
@@ -261,8 +475,8 @@ def _kernel_family(name):
 
 
 def profile_slice(torch, solve, wall_plain, trips, out_path):
-    """Phase 5: one more slice run under torch.profiler; the summary goes to
-    ``out_path`` as JSON."""
+    """Phase 7: one more run of a path under torch.profiler; the summary goes
+    to ``out_path`` as JSON."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,9 +522,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument(
         "--profile", metavar="PATH",
-        help="profile one more slice run and write its summary as JSON to PATH",
+        help="profile one more case30 run and write its summary as JSON to PATH",
+    )
+    ap.add_argument(
+        "--profile118", metavar="PATH",
+        help="profile a case118 run of cut depth and write its summary as JSON to PATH",
+    )
+    ap.add_argument(
+        "--profile118-iters", type=int, default=8, metavar="N",
+        help="SQP iterations (max_iter) of the profiled case118 run (default 8)",
+    )
+    ap.add_argument(
+        "--paths", default="case30,case118",
+        help="the paths to drive (default both; a partial run prints no closing ok line)",
     )
     args = ap.parse_args()
+    paths = args.paths.split(",")
 
     import torch
 
@@ -339,15 +566,24 @@ def main() -> int:
             log(f"build: {line.strip()}")
 
     record = check_kernel(torch, chol_blocked, card)
-    solve, wall, trips = run_slice(torch, record)
-    if args.profile:
-        profile_slice(torch, solve, wall, trips, args.profile)
-    for batch, n in SLICE_SHAPES:
+    record["blocked"] = check_blocked(torch, chol_blocked, card)
+    if "case30" in paths:
+        solve, wall, trips = run_slice(torch, record)
+        if args.profile:
+            profile_slice(torch, solve, wall, trips, args.profile)
+    if "case118" in paths:
+        run_case118(torch, record)
+        if args.profile118:
+            profile_case118(torch, args.profile118_iters, args.profile118)
+    for batch, n in SLICE_SHAPES + PANEL_SHAPES:
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "
             f"its bound, {t['ms'] / t['library_ms']:.3f} of the library call's time")
     log(json.dumps({"kernels": [record]}))
     log(card)
+    if sorted(paths) != ["case118", "case30"]:
+        log(json.dumps({"ok": False, "reason": f"partial run: paths {paths}"}))
+        return 0
     log(json.dumps({
         "ok": True,
         "device": {

@@ -29,10 +29,21 @@ Quick start (batched ACOPF on case30, on the GPU)::
 
 from __future__ import annotations
 
-from .algorithms.sqp_tr import SqpResult, make_solver
-from .convert import nlp_data_to_torch, result_to_numpy, theta_to_torch
+from .algorithms.sqp_tr import SqpResult, SqpState, make_solver
+from .convert import (
+    nlp_data_to_torch,
+    result_to_numpy,
+    sqp_state_to_numpy,
+    sqp_state_to_torch,
+    theta_to_torch,
+)
 from .nlp import NLP, NLPData, build_nlp, initial_point
-from .parallel.batch import batch_data, make_batch_solver, summarize_batch
+from .parallel.batch import (
+    batch_data,
+    make_batch_solver,
+    make_chunked_batch_solver,
+    summarize_batch,
+)
 from .parameters import Parameters, get_parameter, set_parameter
 from .status import STATUS_NAME, Status, is_success, status_name
 
@@ -44,6 +55,7 @@ __all__ = [
     "Parameters",
     "STATUS_NAME",
     "SqpResult",
+    "SqpState",
     "Status",
     "batch_data",
     "build_nlp",
@@ -51,10 +63,13 @@ __all__ = [
     "initial_point",
     "is_success",
     "make_batch_solver",
+    "make_chunked_batch_solver",
     "make_solver",
     "nlp_data_to_torch",
     "result_to_numpy",
     "set_parameter",
+    "sqp_state_to_numpy",
+    "sqp_state_to_torch",
     "status_name",
     "summarize_batch",
     "theta_to_torch",

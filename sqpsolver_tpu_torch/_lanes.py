@@ -14,6 +14,8 @@ has shape ``(B,)``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 
@@ -57,3 +59,37 @@ def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-lane inner product over the last axis."""
     return (a * b).sum(-1)
+
+
+def map_lanes(fn, tree, *rest):
+    """Apply ``fn`` to every tensor of ``tree`` -- a tensor, ``None``, a dict,
+    a NamedTuple or a dataclass of such (the solver state, the problem data,
+    a result) -- and to the matching tensors of the trees in ``rest``;
+    returns a tree of the same type.  The counterpart of ``jax.tree.map``."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: map_lanes(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{
+            f.name: map_lanes(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)
+        })
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(
+            map_lanes(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)
+        ))
+    raise TypeError(f"map_lanes: unsupported node {type(tree).__name__}")
+
+
+def gather_lanes(tree, idx: torch.Tensor):
+    """The lanes ``idx`` (int64, on the tree's device) of every tensor."""
+    return map_lanes(lambda a: a.index_select(0, idx), tree)
+
+
+def scatter_lanes(full, slab, idx: torch.Tensor):
+    """``full`` with its lanes ``idx`` replaced by those of ``slab`` (a copy;
+    ``idx`` holds no lane twice, so the result does not depend on order)."""
+    return map_lanes(lambda f, s: f.index_copy(0, idx, s), full, slab)

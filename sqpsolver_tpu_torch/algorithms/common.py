@@ -3,7 +3,6 @@
 Every function reduces over the LAST axis, so it serves one instance or a
 batch with a leading instance axis alike.  Multiplier sign convention, as in
 the JAX package: stationarity is ``grad f + J^T lam + nu_U - nu_L = 0``.
-The Lanczos lambda_min bound (``hessian_shift="power"``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +12,65 @@ import math
 import numpy as np
 import torch
 
-from .._lanes import amax0, mv
+from .._lanes import amax0, dot, mv
+
+
+def lanczos_start(n: int, dtype, device) -> torch.Tensor:
+    """The deterministic unit Gaussian start vector of
+    :func:`lanczos_lmin_bound`, ``(n,)``: a Gaussian overlaps every
+    eigenvector by ~1/sqrt(n) with high probability.  The JAX package draws
+    its own from ``jax.random``; the numbers differ, the role does not."""
+    v0 = np.random.default_rng(20240819).standard_normal(n)
+    return torch.as_tensor(v0 / np.linalg.norm(v0), dtype=dtype, device=device)
+
+
+def lanczos_lmin_bound(h_mv, batch: int, n: int, dtype, device, iters: int = 40, v0=None):
+    """Lower bound on ``lambda_min`` of a batch of symmetric operators via
+    Lanczos, ``(batch,)``.
+
+    ``h_mv`` maps ``(batch, n)`` to ``(batch, n)``.  Runs ``iters`` Lanczos
+    steps (matvecs only), takes the smallest Ritz value of each lane's
+    tridiagonal matrix and subtracts the residual term ``beta_k |s_k|`` (the
+    Kaniel-Paige bound), a valid lower bound even before convergence.  Every
+    lane starts from the same vector ``v0`` (default :func:`lanczos_start`).
+    A breakdown (``beta`` = 0 on a lane: its Krylov space is exhausted) is
+    handled per lane as the JAX package does: the next vector is ``w /
+    max(beta, 1e-30)``, i.e. zero, and the later steps add zero rows to that
+    lane's tridiagonal matrix.
+    """
+    if v0 is None:
+        v0 = lanczos_start(n, dtype, device)
+    v = v0.to(dtype=dtype, device=device).expand(batch, n)
+    v_prev = torch.zeros((batch, n), dtype=dtype, device=device)
+    beta_prev = torch.zeros((batch,), dtype=dtype, device=device)
+    alphas, betas = [], []
+    for _ in range(iters):
+        w = h_mv(v) - beta_prev[:, None] * v_prev
+        alpha = dot(v, w)
+        w = w - alpha[:, None] * v
+        # one extra projection against the previous two vectors curbs the
+        # worst drift (full reorthogonalization is overkill)
+        w = w - dot(w, v)[:, None] * v - dot(w, v_prev)[:, None] * v_prev
+        beta = torch.linalg.vector_norm(w, dim=-1)
+        v_prev, v, beta_prev = v, w / torch.clamp_min(beta, 1e-30)[:, None], beta
+        alphas.append(alpha)
+        betas.append(beta)
+    alphas = torch.stack(alphas, dim=-1)
+    betas = torch.stack(betas, dim=-1)
+    T = (
+        torch.diag_embed(alphas)
+        + torch.diag_embed(betas[:, :-1], offset=1)
+        + torch.diag_embed(betas[:, :-1], offset=-1)
+    )
+    # float32 is ample for the tiny (iters x iters) eigenproblem; its ~1e-5
+    # relative cost on the bound is absorbed by the pad
+    evals, evecs = torch.linalg.eigh(T.to(torch.float32))
+    idx = torch.argmin(evals, dim=-1)
+    theta = torch.gather(evals, -1, idx[:, None])[:, 0].to(dtype)
+    last = torch.gather(evecs[:, -1, :], -1, idx[:, None])[:, 0]
+    resid = betas[:, -1] * torch.abs(last).to(dtype)
+    pad = 4.0e-7 * amax0(torch.abs(alphas) + 2.0 * betas)
+    return theta - resid - pad
 
 
 def constraint_violation(E, g_l, g_u):

@@ -10,14 +10,15 @@ arithmetic, term for term as in the JAX package.
 
 Ported: ``init_state`` with the initial linear-feasibility projection,
 ``stage_refresh``, ``convexify`` (``ladder``, ``eigh`` on float32,
-``gershgorin``), ``subproblem_inputs``, ``solve_subproblem``,
-``triage_subproblem``, the second-order correction (``solve_soc``),
-``stages_post_qp`` with FR and the status rules, and ``finalize``.  Not
-ported yet (``NotImplementedError``): the Lanczos shift
-(``hessian_shift="power"``), the structured KKT path, per-iteration
-statistics (``StatisticsFlag``) and the float64 IPM phase 2 that
-``qp_rescue`` / ``mixed_polish`` need.  The
-iteration printer (``OutputFlag``) is not ported: the port prints nothing.
+``power`` (the Lanczos bound), ``gershgorin``), ``subproblem_inputs``,
+``solve_subproblem``, ``triage_subproblem``, the second-order correction
+(``solve_soc``), ``stages_post_qp`` with FR and the status rules, and
+``finalize``; ``qp_rescue`` and ``mixed_polish`` hand the IPM its float64
+phase 2.  The solve function carries its three stages as ``init_state``,
+``run_until`` and ``finalize`` for the chunked batch solver.  Not ported
+yet (``NotImplementedError``): the structured KKT path and per-iteration
+statistics (``StatisticsFlag``).  The iteration printer (``OutputFlag``)
+is not ported: the port prints nothing.
 """
 
 from __future__ import annotations
@@ -28,12 +29,17 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .._lanes import amax0, any_lane, dot, mv, select
+from .._lanes import amax0, any_lane, dot, map_lanes, mv, select
 from ..nlp import NLP, NLPData, initial_point
 from ..ops.qp_ipm import IpmOptions, solve_qp
 from ..parameters import Parameters
 from ..status import Status
-from .common import kt_residuals_from_parts, norm_violations, schur_cap_for
+from .common import (
+    kt_residuals_from_parts,
+    lanczos_lmin_bound,
+    norm_violations,
+    schur_cap_for,
+)
 
 #: consecutive stalled-QP iterations tolerated before a lane fails with
 #: ERROR_IN_STEP_COMPUTATION (each stall halves the TR)
@@ -88,12 +94,7 @@ class SqpState:
 
 
 def _select_state(mask, a: SqpState, b: SqpState) -> SqpState:
-    return SqpState(
-        **{
-            f.name: select(mask, getattr(a, f.name), getattr(b, f.name))
-            for f in dataclasses.fields(SqpState)
-        }
-    )
+    return map_lanes(lambda x, y: select(mask, x, y), a, b)
 
 
 class SqpResult(NamedTuple):
@@ -156,8 +157,6 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
         raise ValueError(f"make_solver builds SQP-TR; got algorithm={params.algorithm!r}")
     if params.kkt_structured:
         raise _not_ported("kkt_structured=True", "ROADMAP, later-PR list item 11")
-    if params.hessian_shift == "power":
-        raise _not_ported("hessian_shift='power'", "ROADMAP, later-PR list item 5")
     if params.StatisticsFlag:
         raise _not_ported("StatisticsFlag", "ROADMAP, later-PR list item 10")
     n, m = nlp.n, nlp.m
@@ -174,12 +173,6 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
     polish_iters = (
         20 if polish else (8 if (mixed and dtype == torch.float64 and params.qp_rescue) else 0)
     )
-    if polish_iters:
-        raise _not_ported(
-            "the float64 IPM phase 2 (kkt_precision='mixed_polish', or "
-            "qp_rescue=True with a mixed kkt_precision; pass qp_rescue=False)",
-            "ROADMAP, later-PR list item 2",
-        )
     ipm_opts = IpmOptions(
         max_iter=params.qp_max_iter,
         tol=qp_tol_eff,
@@ -197,7 +190,7 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
         kkt_backend=params.kkt_backend,
         plane=params.kkt_precision == "mixed_plane",
         invE_floor=3.0e-7 if schur_cap else 0.0,
-        polish_iters=0,
+        polish_iters=polish_iters,
         schur_cap=schur_cap,
     )
     w_big = params.elastic_weight
@@ -245,6 +238,12 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
         if params.hessian_shift == "gershgorin":
             diag, off = _gershgorin_data(H)
             lmin = torch.clamp_max(torch.amin(diag - off, dim=-1), 0.0)
+        elif params.hessian_shift == "power":
+            # Lanczos lower bound on lambda_min: matvecs only
+            lmin = lanczos_lmin_bound(
+                lambda v: mv(H, v), H.shape[0], n, dtype, H.device,
+                iters=(params.hessian_shift_iters or min(n, 64)),
+            )
         else:  # "eigh": float32 smallest eigenvalue, padded by f32 eps * |H|
             lmin32 = torch.linalg.eigvalsh(H.to(torch.float32))[:, 0]
             pad = 4.0e-7 * amax0(torch.abs(H).flatten(-2))
@@ -640,4 +639,16 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
         with _true_float32_matmul():
             return finalize(run_until(init_state(d), d, max_iter), d)
 
+    def staged(fn):
+        def stage(*args):
+            with _true_float32_matmul():
+                return fn(*args)
+
+        return stage
+
+    # the three stages, each under the solve's matmul precision, for callers
+    # that advance the state in chunks (parallel.batch)
+    solve.init_state = staged(init_state)
+    solve.run_until = staged(run_until)
+    solve.finalize = staged(finalize)
     return solve

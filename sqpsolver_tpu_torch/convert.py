@@ -5,14 +5,19 @@ the part that weights play in a model: both packages must compute on the
 same numbers.  The functions here take plain arrays (anything
 ``numpy.asarray`` accepts, e.g. the JAX package's ``NLPData`` fields) and
 return this package's tensors, and turn results back into numpy arrays.
-Nothing here imports JAX.
+:func:`sqp_state_to_torch` does the same for the solver state in the middle
+of a solve, so that both packages can be started from one point and a round
+of ``run_until`` compared field by field.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .algorithms.sqp_tr import SqpState
 from .nlp import NLPData, resolve_device
 
 
@@ -44,6 +49,34 @@ def theta_to_torch(theta: dict, *, device=None, dtype=torch.float64) -> dict:
     (``None``: the CUDA card)."""
     device = resolve_device(device)
     return {k: _tensor(v, dtype, device) for k, v in theta.items()}
+
+
+def sqp_state_to_torch(state, *, device=None, dtype=torch.float64) -> SqpState:
+    """A batched solver state of arrays (the JAX package's ``SqpState``, or
+    any object with its fields) -> this package's :class:`SqpState` on
+    ``device`` (``None``: the CUDA card).  Floating fields go to ``dtype``,
+    flags to bool and counters to int32; the JAX state's per-iteration
+    ``stats`` have no counterpart here and are dropped."""
+    device = resolve_device(device)
+    out = {}
+    for f in dataclasses.fields(SqpState):
+        a = np.array(getattr(state, f.name))
+        if a.dtype == np.bool_:
+            kind = torch.bool
+        elif np.issubdtype(a.dtype, np.integer):
+            kind = torch.int32
+        else:
+            kind = dtype
+        out[f.name] = torch.as_tensor(a, dtype=kind, device=device)
+    return SqpState(**out)
+
+
+def sqp_state_to_numpy(state: SqpState) -> dict:
+    """This package's :class:`SqpState` -> dict of numpy arrays by field."""
+    return {
+        f.name: getattr(state, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(SqpState)
+    }
 
 
 def result_to_numpy(result) -> dict:

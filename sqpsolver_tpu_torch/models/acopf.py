@@ -6,8 +6,13 @@ reference-bus angle, bus power balance and branch thermal limits.  Loads
 (pd, qd) enter through the NLP ``theta`` dict, so one solver runs a batch of
 load scenarios.
 
-The JAX ``.at[idx].add`` scatters become out-of-place ``index_add`` so that
-``torch.func`` can trace them.  The network constants are built once per
+The JAX ``.at[idx].add`` scatters (branch flows and generation summed into
+their buses) become products with constant 0/1 incidence matrices:
+``torch.func`` traces them, and they sum in a fixed order.  ``index_add`` on
+a CUDA device sums with atomics in whatever order the threads arrive, which
+made two runs of one solve differ in the last bit of a bus balance and, many
+float32-factorized interior-point trips later, in their trip counts and
+sometimes in where a lane stopped.  The network constants are built once per
 (device, dtype) the first time an evaluation meets them.
 """
 
@@ -42,6 +47,12 @@ def acopf_polar(case: PowerCase, scenario_batchable: bool = True) -> NLP:
     rate2 = np.where(has_rate, case.br_rate**2, 1.0e4)
     consts = {}
 
+    def incidence(idx, width):
+        """(nb, width) 0/1 matrix that sums entries ``j`` into bus ``idx[j]``."""
+        inc = np.zeros((nb, width))
+        inc[np.asarray(idx), np.arange(width)] = 1.0
+        return inc
+
     def const(ref: torch.Tensor) -> dict:
         key = (ref.device, ref.dtype)
         if key not in consts:
@@ -51,7 +62,9 @@ def acopf_polar(case: PowerCase, scenario_batchable: bool = True) -> NLP:
                 adm=torch.as_tensor(adm, **fl),
                 f_idx=torch.as_tensor(case.br_f, **ix),
                 t_idx=torch.as_tensor(case.br_t, **ix),
-                gen_bus=torch.as_tensor(case.gen_bus, **ix),
+                into_gen_bus=torch.as_tensor(incidence(case.gen_bus, ng), **fl),
+                into_f=torch.as_tensor(incidence(case.br_f, nl), **fl),
+                into_t=torch.as_tensor(incidence(case.br_t, nl), **fl),
                 gs=torch.as_tensor(case.bus_gs, **fl),
                 bs=torch.as_tensor(case.bus_bs, **fl),
                 pd=torch.as_tensor(case.bus_pd, **fl),
@@ -92,20 +105,19 @@ def acopf_polar(case: PowerCase, scenario_batchable: bool = True) -> NLP:
         qd = theta["qd"] if theta is not None else k["qd"]
         p_f, q_f, p_t, q_t = flows(va, vm, k)
         vm2 = vm * vm
-        z = x.new_zeros(nb)
         p_inj = (
-            z.index_add(0, k["gen_bus"], pg)
+            k["into_gen_bus"] @ pg
             - pd
             - k["gs"] * vm2
-            - z.index_add(0, k["f_idx"], p_f)
-            - z.index_add(0, k["t_idx"], p_t)
+            - k["into_f"] @ p_f
+            - k["into_t"] @ p_t
         )
         q_inj = (
-            z.index_add(0, k["gen_bus"], qg)
+            k["into_gen_bus"] @ qg
             - qd
             + k["bs"] * vm2
-            - z.index_add(0, k["f_idx"], q_f)
-            - z.index_add(0, k["t_idx"], q_t)
+            - k["into_f"] @ q_f
+            - k["into_t"] @ q_t
         )
         s_from = p_f * p_f + q_f * q_f
         s_to = p_t * p_t + q_t * q_t

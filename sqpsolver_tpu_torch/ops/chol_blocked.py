@@ -11,9 +11,16 @@ the JAX package's ``ops/chol_blocked.py``).
   or raises.  Each launch adds one to ``chol_tile.launches``.
 * :func:`tri_inv_doubling` is the log-depth product-doubling inverse of a
   lower-triangular matrix, as batched ``torch.matmul`` rounds.
-* :func:`cholesky_blocked` and :func:`tri_inv_blocked` cover n <= 128, where
-  one tile is the whole matrix.  The 128-panel paths for larger n are not
-  ported yet (ROADMAP Queue 2, item 2).
+* :func:`cholesky_blocked` and :func:`tri_inv_blocked` take any n.  Up to
+  128 one tile is the whole matrix.  Beyond, the factorization is
+  left-looking over 128-wide panels: per panel one batched correction
+  product, one :func:`chol_tile` launch on the diagonal block, one doubling
+  inverse of it and one panel-solve product; the inverse takes all
+  diagonal-block inverses in one batched doubling pass and then the
+  row-block recurrence.  The JAX package pads n to a multiple of 128 with an
+  identity block because its kernel takes 128 only; ``chol_tile`` takes any
+  n <= 128, so the last panel keeps its true width here (the padded rows only
+  ever contribute exact zeros).
 
 Float32 products here must be true float32: the solver turns TF32 off for
 the duration of each solve (TF32 keeps ~3 digits and ruins the factor that
@@ -28,12 +35,6 @@ import functools
 import torch
 
 BLK = 128
-
-_NOT_PORTED = (
-    "n > 128 needs the 128-panel path, not ported yet "
-    "(ROADMAP Queue 2, item 2)"
-)
-
 
 def _check_tiles(M: torch.Tensor) -> None:
     if M.dtype != torch.float32:
@@ -120,15 +121,61 @@ def tri_inv_doubling(L: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_blocked(M: torch.Tensor) -> torch.Tensor:
-    """Cholesky of batched SPD matrices ``(B, n, n)``, float32 factors.
-    Non-SPD input gives a non-finite factor."""
-    if M.shape[-1] > BLK:
-        raise NotImplementedError(_NOT_PORTED)
-    return chol_tile(M.to(torch.float32).contiguous())
+    """Cholesky of batched SPD matrices ``(B, n, n)``, float32 factors with an
+    exact-zero strict upper triangle.  Non-SPD input gives a non-finite
+    factor: a bad pivot in panel k makes that panel and every later one
+    non-finite on that lane (nothing on the way masks it)."""
+    M = M.to(torch.float32).contiguous()
+    B, n = M.shape[0], M.shape[-1]
+    cholesky_blocked.calls += 1
+    if n <= BLK:
+        return chol_tile(M)
+    L = M.new_zeros((B, n, n))
+    for r0 in range(0, n, BLK):
+        r1 = min(r0 + BLK, n)
+        Sk = M[:, r0:, r0:r1]  # (B, n - r0, width)
+        if r0 > 0:
+            # left-looking correction: rows r0.. of L[:, :, :r0] times the
+            # transpose of the panel's own rows of it
+            Lrows = L[:, r0:, :r0]
+            Sk = Sk - torch.matmul(Lrows, Lrows[:, : r1 - r0, :].transpose(-1, -2))
+        Dk = chol_tile(Sk[:, : r1 - r0, :].contiguous())
+        L[:, r0:r1, r0:r1] = Dk
+        if r1 < n:
+            Dk_inv = tri_inv_doubling(Dk)
+            L[:, r1:, r0:r1] = torch.matmul(Sk[:, r1 - r0 :, :], Dk_inv.transpose(-1, -2))
+    return L
+
+
+#: factorizations asked for so far (each one launches ceil(n / 128) tiles)
+cholesky_blocked.calls = 0
 
 
 def tri_inv_blocked(L: torch.Tensor) -> torch.Tensor:
-    """Explicit inverse of batched lower-triangular ``(B, n, n)`` matrices."""
-    if L.shape[-1] > BLK:
-        raise NotImplementedError(_NOT_PORTED)
-    return tri_inv_doubling(L)
+    """Explicit inverse of batched lower-triangular ``(B, n, n)`` matrices by
+    128-blocked forward substitution with doubling diagonal inverses:
+    ``X[i] = Dinv_i (I[i] - L[i, :i] X[:i])``."""
+    B, n = L.shape[0], L.shape[-1]
+    if n <= BLK:
+        return tri_inv_doubling(L)
+    starts = range(0, n, BLK)
+    # all diagonal-block inverses in one batched doubling pass; the ragged
+    # last block is completed by an identity corner to stack with the others
+    diags = L.new_zeros((B, len(starts), BLK, BLK))
+    for i, r0 in enumerate(starts):
+        w = min(BLK, n - r0)
+        diags[:, i, :w, :w] = L[:, r0 : r0 + w, r0 : r0 + w]
+        if w < BLK:
+            diags[:, i, w:, w:] = torch.eye(BLK - w, dtype=L.dtype, device=L.device)
+    dinv = tri_inv_doubling(diags.reshape(B * len(starts), BLK, BLK)).reshape(
+        B, len(starts), BLK, BLK
+    )
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    X = L.new_zeros((B, n, n))
+    for i, r0 in enumerate(starts):
+        w = min(BLK, n - r0)
+        rhs = eye[r0 : r0 + w, :].expand(B, w, n)
+        if i > 0:
+            rhs = rhs - torch.matmul(L[:, r0 : r0 + w, :r0], X[:, :r0, :])
+        X[:, r0 : r0 + w, :] = torch.matmul(dinv[:, i, :w, :w], rhs)
+    return X

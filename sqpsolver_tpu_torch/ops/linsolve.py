@@ -13,7 +13,12 @@ host loop over a per-lane mask (one host sync per trip), with every lane's
 Backends: ``"pallas"`` is the package's hand-written kernel
 (:func:`ops.chol_blocked.cholesky_blocked`, float32 factors); ``"xla"`` is
 ``torch.linalg.cholesky_ex``, whose ``info`` failure signal is mapped to the
-non-finite factor the JAX code tests for.
+non-finite factor the JAX code tests for.  The kernel is float32 only, so a
+factor asked for in another dtype (the direct float64 factors of the IPM's
+phase 2) takes the library route under either backend.  The JAX package's
+blocked route casts every matrix to float32 instead, which makes its
+"float64" phase a second float32 one under ``kkt_backend="pallas"``; the
+port does not copy that.
 """
 
 from __future__ import annotations
@@ -92,7 +97,8 @@ def factorize_spd(
     )
     delta_floor = diag_scale * 1e-12
     delta0 = torch.as_tensor(delta0, dtype=dtype, device=M.device).expand(B)
-    chol = cholesky_blocked if backend == "pallas" else _chol_library
+    hand = backend == "pallas" and fdtype == torch.float32
+    chol = cholesky_blocked if hand else _chol_library
 
     def attempt(delta):
         L = chol((M_eff + delta[:, None, None] * eye).to(fdtype))

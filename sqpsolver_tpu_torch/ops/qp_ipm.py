@@ -15,15 +15,27 @@ to the ``schur_cap`` stiffest rows when set.  The interior-point loop is a
 host loop over the lanes still running (converged, failed and skipped lanes
 keep their state bit for bit, as under ``vmap``).
 
-Ported: warm start, the stall exit and the best-iterate snapshot of phase 1.
-Not ported yet: the float64 phase 2 (``polish_iters > 0``: the stall rescue
-and ``mixed_polish``) and the float32 matrix plane (``plane=True``, i.e.
-``mixed_plane``); both raise ``NotImplementedError``.
+With ``polish_iters > 0`` on float32 factors and float64 data a second loop
+continues the same iteration with direct float64 factorizations
+(:meth:`DenseOp.rescue_op`): the stall rescue (``qp_rescue``) and the strict
+``mixed_polish`` tolerance.  Lanes that phase 1 left strictly converged, and
+skipped lanes, take no phase-2 trip and keep their state bit for bit; lanes
+converged at the floored phase-1 tolerance continue warm; lanes that left
+phase 1 unconverged restart from the cold point.  The Hopper card has
+float64 in hardware, so phase 2 is the same host loop with another operator
+and needs none of the JAX package's resumable micro-stepping.
+``solve_qp.loop_trips`` counts the batched trips of each phase and
+``solve_qp.phase_seconds`` the host time spent in each (every trip starts
+with the loop's host sync, so this is wall time to within one trip).
+
+Not ported: the float32 matrix plane (``plane=True``, i.e. ``mixed_plane``),
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,6 +48,9 @@ _BIG = 1e20  # stand-in for +inf inside masked arithmetic
 #: floor for warm-started bound/row duals (keeps every complementarity pair
 #: strictly positive)
 _WARM_DUAL_FLOOR = 1.0e-2
+
+#: floor of the float32-factorized phase when a float64 phase follows it
+_POLISH_FLOOR = 2.0e-6
 
 _STATE_KEYS = ("p", "s", "u", "v", "y", "zl", "zu", "ll", "lu", "zeta_u", "zeta_v")
 
@@ -100,6 +115,21 @@ class DenseOp:
 
     def a_rmv(self, y):
         return mv(self.A.transpose(-1, -2), y)
+
+    def rescue_op(self, keep_cap: bool = False) -> "DenseOp":
+        """Full-precision twin for the phase-2 loop: direct factors in the
+        compute dtype over the same ``Q`` and ``A`` (shared, not copied).
+        ``keep_cap=True`` (the stall rescue) retains the bounded Schur set;
+        the strict ``mixed_polish`` phase lifts it so that nothing blocks
+        1e-8-grade dual accuracy."""
+        return DenseOp(
+            self.Q, self.A,
+            dataclasses.replace(
+                self.opts, factor_dtype="same", plane=False,
+                schur_cap=self.opts.schur_cap if keep_cap else 0,
+            ),
+            self.dtype,
+        )
 
     def cap_stiff(self, stiff, E, cap):
         """Keep the ``cap`` globally stiffest rows (smallest E, ties by row
@@ -227,11 +257,9 @@ def solve_qp(
     B, n = c.shape
     m = rl.shape[-1]
     dev = c.device
-    if opts.polish_iters > 0 and opts.factor_dtype == "float32" and dtype == torch.float64:
-        raise NotImplementedError(
-            "the float64 second IPM phase (qp_rescue / mixed_polish) is not "
-            "ported yet (ROADMAP, later-PR list item 2)"
-        )
+    do_polish = (
+        opts.polish_iters > 0 and opts.factor_dtype == "float32" and dtype == torch.float64
+    )
     tau = opts.ftb
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
@@ -283,6 +311,12 @@ def solve_qp(
     lu = torch.where(hru, one, zero)
     zeta_u = w + y
     zeta_v = w - y
+    # the cold point, kept: phase 2 restarts unconverged lanes from it (a warm
+    # start that led the float32 phase astray must not also seed the rescue)
+    cold_fields = dict(
+        p=p, s=s, u=u, v=v, y=y, zl=zl, zu=zu, ll=ll, lu=lu,
+        zeta_u=zeta_u, zeta_v=zeta_v,
+    )
 
     # ------------------------------------------------- warm start (opt-in) --
     if init is not None:
@@ -352,13 +386,12 @@ def solve_qp(
         return tot / n_pairs
 
     inf_b = torch.full((B,), torch.inf, dtype=dtype, device=dev)
+    skiparr = torch.zeros(B, dtype=torch.bool, device=dev) if skip is None else skip
     st = dict(
         p=p, s=s, u=u, v=v, y=y, zl=zl, zu=zu, ll=ll, lu=lu,
         zeta_u=zeta_u, zeta_v=zeta_v,
         iters=torch.zeros(B, dtype=torch.int32, device=dev),
-        converged=(
-            torch.zeros(B, dtype=torch.bool, device=dev) if skip is None else skip.clone()
-        ),
+        converged=skiparr.clone(),
         failed=torch.zeros(B, dtype=torch.bool, device=dev),
         since_improve=torch.zeros(B, dtype=torch.int32, device=dev),
         delta=torch.zeros(B, dtype=dtype, device=dev),
@@ -397,11 +430,20 @@ def solve_qp(
         )
         return pri, dual
 
-    tol = torch.full((B,), opts.tol, dtype=dtype, device=dev)
+    state0 = dict(st)
+    # phase 1 stops at the mixed-precision floor when a float64 phase follows;
+    # tol_override relaxes both phases, never tightens
+    tol_p1 = torch.full(
+        (B,), max(opts.tol, _POLISH_FLOOR) if do_polish else opts.tol, dtype=dtype, device=dev
+    )
+    tol_p2 = torch.full((B,), opts.tol, dtype=dtype, device=dev)
     if tol_override is not None:
-        tol = torch.maximum(tol, tol_override.to(dtype))
+        tol_p1 = torch.maximum(tol_p1, tol_override.to(dtype))
+        tol_p2 = torch.maximum(tol_p2, tol_override.to(dtype))
 
-    def body(st):
+    def body(st, lop, tol, cap, guard):
+        """One interior-point trip on every lane with operator ``lop``; the
+        stall and divergence cutoffs apply only under ``guard`` (phase 1)."""
         p, s, u, v = st["p"], st["s"], st["u"], st["v"]
         y, zl, zu, ll, lu = st["y"], st["zl"], st["zu"], st["ll"], st["lu"]
         zeta_u, zeta_v = st["zeta_u"], st["zeta_v"]
@@ -420,11 +462,11 @@ def solve_qp(
         ev = v / zeta_v
         E = eu + ev + _masked_div(torch.ones_like(Ds), Ds, rowbounded)
         soft = (E > 1.0) | freerow
-        stiff = op.cap_stiff(~soft, E, opts.schur_cap)
+        stiff = lop.cap_stiff(~soft, E, cap)
         elim = ~stiff & ~freerow
         invE_soft = torch.where(elim, 1.0 / torch.clamp_min(E, opts.invE_floor), zero)
         E_stiff = torch.where(stiff, E, one)
-        solve_block, fact_delta = op.prepare(
+        solve_block, fact_delta = lop.prepare(
             ridge_vec + Dp, invE_soft, stiff, E_stiff, st["delta"]
         )
 
@@ -519,14 +561,15 @@ def solve_qp(
         new["since_improve"] = torch.where(
             usable & ~improved10, st["since_improve"] + 1, 0
         ).to(torch.int32)
-        if opts.stall_iters > 0:
+        if opts.stall_iters > 0 and guard:
             new["failed"] = new["failed"] | (new["since_improve"] >= opts.stall_iters)
         for key in ("p", "y", "zl", "zu", "u", "v"):
             new["b_" + key] = select(better, new[key], st["b_" + key])
         for key, val in (("err", err), ("pri", pri), ("dual", dual), ("gap", gap)):
             new["b_" + key] = torch.where(better, val, st["b_" + key])
-        diverging = err > 1.0e4 * torch.maximum(new["b_err"], tol)
-        new["failed"] = new["failed"] | diverging
+        if guard:
+            diverging = err > 1.0e4 * torch.maximum(new["b_err"], tol)
+            new["failed"] = new["failed"] | diverging
 
         # numerical-breakdown backstop: revert to the previous iterate, stop
         finite = torch.ones(B, dtype=torch.bool, device=dev)
@@ -537,12 +580,40 @@ def solve_qp(
         out["iters"] = new["iters"]
         return out
 
-    while True:
-        active = ~st["converged"] & ~st["failed"] & (st["iters"] < opts.max_iter)
-        if not any_lane(active):
-            break
-        new = body(st)
-        st = {k: select(active, new[k], st[k]) for k in st}
+    def run_phase(st, phase, lop, tol, max_iter_, cap, guard):
+        t0 = time.perf_counter()
+        while True:
+            active = ~st["converged"] & ~st["failed"] & (st["iters"] < max_iter_)
+            if not any_lane(active):
+                solve_qp.phase_seconds[phase] += time.perf_counter() - t0
+                return st
+            solve_qp.loop_trips[phase] += 1
+            new = body(st, lop, tol, cap, guard)
+            st = {k: select(active, new[k], st[k]) for k in st}
+
+    st = run_phase(st, 1, op, tol_p1, opts.max_iter, opts.schur_cap, True)
+    if do_polish:
+        # phase 2: lanes strictly converged (or skipped) take zero trips;
+        # lanes converged at the floored tolerance continue warm; lanes that
+        # left phase 1 unconverged restart cold with exact factors (a float32
+        # exit is typically jammed at a degenerate corner where exact Newton
+        # steps cannot recover either).  The best iterate spans both phases.
+        strict_polish = float(opts.tol) < _POLISH_FLOOR
+        strict = (st["pri_res"] < tol_p2) & (st["dual_res"] < tol_p2) & (st["gap"] < tol_p2)
+        done2 = strict | skiparr
+        cold = ~done2 & ~st["converged"]
+        state0_cold = dict(state0, **cold_fields)
+        st = {
+            k: v if k.startswith("b_") else select(cold, state0_cold[k], v)
+            for k, v in st.items()
+        }
+        st["converged"] = done2
+        st["failed"] = torch.zeros_like(done2)
+        st["since_improve"] = torch.zeros_like(st["since_improve"])
+        st = run_phase(
+            st, 2, op.rescue_op(keep_cap=not strict_polish), tol_p2,
+            opts.max_iter + opts.polish_iters, 0 if strict_polish else opts.schur_cap, False,
+        )
 
     # finalize: the best iterate seen
     pri, dual, gap = st["b_pri"], st["b_dual"], st["b_gap"]
@@ -561,3 +632,9 @@ def solve_qp(
         dual_res=dual,
         gap=gap,
     )
+
+
+#: batched loop trips (body invocations) taken so far, by phase
+solve_qp.loop_trips = {1: 0, 2: 0}
+#: host seconds spent in each phase's loop so far
+solve_qp.phase_seconds = {1: 0.0, 2: 0.0}

@@ -3,21 +3,25 @@
 The port's solver is batch-first already: one host-driven SQP program
 advances B independent instances in lockstep, with per-instance status, FR
 and TR state as masked arithmetic; the batch finishes when every instance
-has terminated.  The chunked solver of the JAX package is not ported yet
-(ROADMAP, later-PR list item 6).
+has terminated.  :func:`make_chunked_batch_solver` advances the same state
+in host-controlled rounds through a slab of lanes (a work queue) and can
+re-solve the lanes whose float32-factorized QPs stalled with the float64
+rescue phase switched on.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .._lanes import gather_lanes, scatter_lanes
 from ..algorithms.sqp_tr import SqpResult, make_solver
 from ..convert import theta_to_torch
 from ..nlp import NLP, NLPData, resolve_device
 from ..parameters import Parameters
+from ..status import Status
 
 
 def batch_data(
@@ -64,6 +68,106 @@ def make_batch_solver(
     """Batched solver: batched NLPData -> batched SqpResult, on the device
     the data lies on."""
     return make_solver(nlp, params)
+
+
+def make_chunked_batch_solver(
+    nlp: NLP,
+    params: Parameters = Parameters(),
+    *,
+    chunk0: int = 1,
+    max_chunk: int = 64,
+    sub_batch: int = 0,
+    log: Optional[Callable[[str], None]] = None,
+    rescue_fallback: bool = False,
+) -> Callable[[NLPData], SqpResult]:
+    """Batched solver advanced in host-controlled rounds of outer iterations.
+
+    Each round advances a slab of lanes by ``min(chunk0, max_chunk)`` SQP
+    iterations through the solver's ``run_until`` stage and costs one host
+    sync (every lane's iteration count and done flag) on top of the solver's
+    own.  The rounds are the cut points of a checkpoint or a lane repacking;
+    the result is that of the monolithic solver, lane for lane.
+
+    ``sub_batch``: slab width (0 = the whole batch).  With a slab the lanes
+    form a WORK QUEUE: each round gathers the ``sub_batch`` least-advanced
+    lanes still running (fewer when fewer are left: no padding lanes ride
+    along), advances them and scatters their state back.  One straggler then
+    costs a slab of its own width, not the whole batch's.  The round's
+    iteration limit keys on the slab's own lanes.
+
+    ``rescue_fallback``: two-pass execution for ``qp_rescue=False``.  Pass 1
+    runs the float32-factorized program; lanes that end in
+    ``Error_In_Step_Computation`` are then re-solved from cold, at their own
+    count, by a lazily built twin with ``qp_rescue=True`` (the float64 IPM
+    phase 2), and their results merged back.  Only the stalled lanes pay for
+    float64 factorizations.
+
+    ``solve.stats`` holds the last call's ``rounds`` (= host syncs of this
+    loop), ``fallback_lanes`` and ``fallback_rounds``.
+
+    Left out of the JAX package's version, which sizes every device call
+    against a 60 s execution limit of its TPU host and works around compiler
+    faults at narrow widths: the wall-clock chunk controller
+    (``target_chunk_seconds``), the micro-stepped rescue (``micro_trips``),
+    the width floor of 4 with its duplicate-lane padding, the fixed fallback
+    slab width, and the rule that pins rescue-enabled solves of n >= 160 to
+    one iteration per call.  A CUDA stream has no such limit and the port
+    compiles nothing per shape.
+    """
+    solver = make_solver(nlp, params)
+    max_iter = params.max_iter
+    k = max(1, min(int(chunk0), int(max_chunk)))
+    fallback: list = []
+
+    def solve(data: NLPData) -> SqpResult:
+        B = int(data.x0.shape[0])
+        W = min(int(sub_batch), B) if sub_batch else B
+        dev = data.x0.device
+        st = solver.init_state(data)
+        stats = dict(rounds=0, fallback_lanes=[], fallback_rounds=0)
+        solve.stats = stats
+        while True:
+            # the round's one host sync
+            flags = torch.stack([st.iter, st.done.to(st.iter.dtype)]).cpu().numpy()
+            it, done = flags[0], flags[1].astype(bool)
+            active = np.where(~done & (it <= max_iter))[0]
+            if active.size == 0:
+                break
+            # work queue: the W least-advanced active lanes form the slab
+            sel = np.sort(active[np.argsort(it[active], kind="stable")][:W])
+            limit = min(int(it[sel].min()) + k - 1, max_iter)
+            if log:
+                log(f"chunked: -> limit {limit} (k={k}, {int(done.sum())}/{B} done, "
+                    f"slab {sel.size})")
+            if sel.size == B:
+                st = solver.run_until(st, data, limit)
+            else:
+                idx = torch.as_tensor(sel, dtype=torch.int64, device=dev)
+                slab = solver.run_until(gather_lanes(st, idx), gather_lanes(data, idx), limit)
+                st = scatter_lanes(st, slab, idx)
+            stats["rounds"] += 1
+        res = solver.finalize(st, data)
+
+        if rescue_fallback and not params.qp_rescue:
+            status = res.status.cpu().numpy()
+            bad = np.where(status == int(Status.ERROR_IN_STEP_COMPUTATION))[0]
+            if bad.size:
+                if log:
+                    log(f"chunked: rescue fallback for {bad.size} lanes")
+                if not fallback:
+                    fallback.append(make_chunked_batch_solver(
+                        nlp, params.replace(qp_rescue=True),
+                        chunk0=chunk0, max_chunk=max_chunk, sub_batch=sub_batch, log=log,
+                    ))
+                idx = torch.as_tensor(bad, dtype=torch.int64, device=dev)
+                res_bad = fallback[0](gather_lanes(data, idx))
+                res = scatter_lanes(res, res_bad, idx)
+                stats["fallback_lanes"] = bad.tolist()
+                stats["fallback_rounds"] = fallback[0].stats["rounds"]
+        return res
+
+    solve.stats = dict(rounds=0, fallback_lanes=[], fallback_rounds=0)
+    return solve
 
 
 def summarize_batch(raw: SqpResult) -> dict:

@@ -90,10 +90,13 @@ def test_wrapper_rejects_bad_input():
         chol_tile(torch.zeros(1, 130, 130))
     with pytest.raises(ValueError):  # neither cpu nor cuda: no silent fallback
         chol_tile(torch.zeros(1, 4, 4, device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cholesky_blocked(torch.zeros(1, 130, 130))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tri_inv_blocked(torch.zeros(1, 130, 130))
+    # beyond one tile the blocked routines take over: n = 130 factors and
+    # inverts (two panels, the second two columns wide)
+    M = torch.as_tensor(_spd(np.random.default_rng(130), 130))
+    L = cholesky_blocked(M)
+    assert torch.allclose(L @ L.transpose(-1, -2), M, rtol=0, atol=1e-3 * 130)
+    eye = torch.eye(130)
+    assert (tri_inv_blocked(L) @ L - eye).abs().max() < 5e-5
 
 
 @pytest.mark.parametrize("n", [16, 72, 96, 128])

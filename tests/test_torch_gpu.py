@@ -15,7 +15,19 @@ JAX it runs on its own, without the suite's JAX conftest::
   of the kernel there): ACOPF case5 in the slice configuration, 4 load
   scenarios -- statuses equal, objectives within 1e-7 relative (float32
   factor rounding differs between the two devices; the converged objective
-  does not, to the solve's tolerance).
+  does not, to the solve's tolerance);
+* the 128-panel ``cholesky_blocked`` at n = 344 on the card (three launches
+  of the kernel) against the same call on the CPU (the plain version there):
+  max|dL| / max|L| <= 1e-5;
+* the dense case118 path on the card against the same on the CPU: two of
+  the 16 scenarios of ``chip_smoke.py`` (lanes 0 and 8, which solve within
+  nine iterations through the rescue fallback) through
+  ``make_chunked_batch_solver(rescue_fallback=True)`` -- statuses equal and
+  solved, objectives within 1e-6 relative, the float64 phase 2 taken on both
+  devices;
+* the case118 model evaluates bit for bit the same every time on the card
+  (constraints, Jacobian, Lagrangian Hessian: bus sums in a fixed order, no
+  atomics), and so do two solves of the first five iterations.
 """
 
 import numpy as np
@@ -25,7 +37,8 @@ import torch
 import sqpsolver_tpu_torch as tp
 from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
 from sqpsolver_tpu_torch.models.matpower import load_case
-from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, chol_tile_plain
+from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, chol_tile_plain, cholesky_blocked
+from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
 
 SLICE = dict(
     max_iter=40, OutputFlag=0, tol_infeas=1.0e-6, tol_residual=1.0e-4,
@@ -105,3 +118,65 @@ def test_solve_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(gpu["status"], cpu["status"])
     assert np.isin(gpu["status"], [0, 1, 6]).all()
     np.testing.assert_allclose(gpu["obj_val"], cpu["obj_val"], rtol=1e-7)
+
+
+@pytest.mark.gpu
+def test_cholesky_blocked_n344_matches_cpu(cuda):
+    rng = np.random.default_rng(344)
+    G = rng.standard_normal((4, 344, 344))
+    M = G @ G.transpose(0, 2, 1) / 344 + 0.05 * np.eye(344)
+    d = 1.0 / np.sqrt(np.diagonal(M, axis1=1, axis2=2))
+    M = torch.tensor(M * d[:, :, None] * d[:, None, :], dtype=torch.float32)
+    before = chol_tile.launches
+    L = cholesky_blocked(M.to(cuda))
+    assert chol_tile.launches == before + 3
+    Lc = cholesky_blocked(M)
+    assert chol_tile.launches == before + 3  # the CPU call launches nothing
+    assert ((L.cpu() - Lc).abs().max() / Lc.abs().max()).item() <= 1e-5
+    assert torch.triu(L, 1).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_case118_chunked_solve_on_card_matches_cpu(cuda):
+    case = load_case("case118")
+    nlp = acopf_polar(case)
+    lanes = [0, 8]
+    theta = {k: v[lanes] for k, v in load_scenarios(case, 16, seed=7, spread=0.03).items()}
+    params = tp.Parameters(**dict(SLICE, max_iter=10, kkt_ir_steps=2, schur_cap=-1))
+    out = {}
+    for device in (cuda, "cpu"):
+        solver = tp.make_chunked_batch_solver(nlp, params, sub_batch=128, rescue_fallback=True)
+        trips = solve_qp.loop_trips[2]
+        res = solver(tp.batch_data(nlp, len(lanes), theta=theta, device=device))
+        assert solve_qp.loop_trips[2] > trips
+        assert solver.stats["fallback_lanes"]  # some lanes needed the rescue
+        out[str(device)] = tp.result_to_numpy(res)
+    gpu, cpu = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(gpu["status"], cpu["status"])
+    assert np.isin(gpu["status"], [0, 1, 6]).all()
+    np.testing.assert_allclose(gpu["obj_val"], cpu["obj_val"], rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_case118_is_bit_reproducible_on_the_card(cuda):
+    case = load_case("case118")
+    nlp = acopf_polar(case)
+    theta = load_scenarios(case, 16, seed=7, spread=0.03)
+    data = tp.batch_data(nlp, 16, theta=theta, device=cuda)
+    gen = torch.Generator(device="cuda").manual_seed(118)
+    x = data.x0 + 0.05 * torch.randn(data.x0.shape, generator=gen, device=cuda, dtype=data.x0.dtype)
+    lam = torch.randn((16, nlp.m), generator=gen, device=cuda, dtype=x.dtype)
+
+    def evaluate():
+        return (nlp.obj_cons(x, data.theta)[1], nlp.cons_jac(x, data.theta),
+                nlp.lag_hess(x, lam, data.theta))
+
+    first = evaluate()
+    for _ in range(10):
+        for a, b in zip(first, evaluate()):
+            assert torch.equal(a, b)
+
+    solver = tp.make_batch_solver(nlp, tp.Parameters(**dict(SLICE, max_iter=5)))
+    one, two = solver(data), solver(data)
+    for key in ("x", "obj_val", "qp_iters_total", "status"):
+        assert torch.equal(getattr(one, key), getattr(two, key)), key

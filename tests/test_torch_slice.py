@@ -2,7 +2,7 @@
 ``make_batch_solver`` with the same ``Parameters`` on the same data.
 
 * toy problem (with the initial linear-feasibility projection and without;
-  the ``eigh`` and ``gershgorin`` Hessian shifts): status, x (rel 1e-9) and iteration counts equal; the projection
+  the ``eigh``, ``gershgorin`` and ``power`` Hessian shifts): status, x (rel 1e-9) and iteration counts equal; the projection
   run also lands on the golden x* = (-1, -1).
 * the Maratos problem with and without the second-order correction: the
   same counters (rejects, SOC accepts) as JAX;
@@ -42,7 +42,8 @@ ANCHOR = os.path.join(
 
 
 @pytest.mark.parametrize(
-    "projection,shift", [("auto", "eigh"), ("off", "eigh"), ("auto", "gershgorin")]
+    "projection,shift",
+    [("auto", "eigh"), ("off", "eigh"), ("auto", "gershgorin"), ("auto", "power")],
 )
 def test_toy_matches_jax(projection, shift):
     kw = dict(max_iter=200, OutputFlag=0, init_projection=projection, hessian_shift=shift)
