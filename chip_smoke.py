@@ -3,7 +3,7 @@
 Usage, from the repository root, on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA::
 
-    python3 chip_smoke.py            # build, check the kernel, run both paths
+    python3 chip_smoke.py            # build, check the kernel, run every path
     python3 chip_smoke.py --profile out/profile_slice.json  # + a profiled case30 run
     python3 chip_smoke.py --profile118 out/profile_case118.json  # + a profiled case118 run, cut to 8 iterations
     python3 chip_smoke.py --paths case118   # a partial run: no closing "ok" line
@@ -53,7 +53,25 @@ Phases (any failure raises and the exit code is non-zero):
    under ``torch.profiler`` (case118 cut to ``--profile118-iters`` SQP
    iterations: a whole solve is millions of device events), printing the
    device time by kernel and the device's busy share of the wall time, and
-   writing the summary as JSON to ``PATH``.
+   writing the summary as JSON to ``PATH``;
+8. the single-NLP entry point ``optimize`` on ``cuda`` (float64, direct
+   factorizations through the library, as the default parameters have it):
+   the verify recipe's three drives (the toy problem with ``OutputFlag=1``,
+   whose iteration log is printed, and ``StatisticsFlag=1``, whose arrays
+   must have ``iterations + 1`` rows; hs071; ACOPF case9), SQP-LS on the toy
+   problem, hs071, hs014 and hs100, and the infeasible and unbounded
+   problems under SQP-TR; each must end in the status the JAX package
+   reached on the same problem and, where JAX succeeded, within 1e-6
+   relative of its objective (``sqpsolver_tpu_torch/data/anchor_hs.json``);
+   iterations and wall are printed beside JAX's iterations;
+9. the case30 path's configuration under the line search
+   (``algorithm="SQP-LS"``) through the package's ``make_solver`` dispatch
+   on ``cuda``, 32 load scenarios, the kernel on the float32 IPM phase:
+   every lane the JAX package solved (``anchor_ls_case30_b32.json``) must be
+   solved within 1e-6 relative of its objective, and the kernel's launch
+   count over that run must be positive; wall, SQP-iter/s, solves/s, host
+   syncs, launches and the Armijo trial points per batched iteration are
+   printed.
 
 Standard output ends with these lines, in this order: the kernel's share of
 its bound and its ratio to the library call at the two paths' five shapes; the
@@ -82,6 +100,7 @@ SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
 PANEL_SHAPES = ((16, 128), (16, 88), (16, 80))  # case118 b16: K = 128+128+88, S = 128+128+80
 TIMED = SLICE_SHAPES + ((256, 128),) + PANEL_SHAPES
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
+PATHS = ("case30", "case118", "single", "ls_case30")  # phases 5, 6, 8, 9
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67.0e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -345,6 +364,141 @@ def run_slice(torch, record):
     return solve, wall, trips
 
 
+def _anchor(name):
+    with open(os.path.join(ROOT, "sqpsolver_tpu_torch", "data", name)) as fh:
+        return json.load(fh)
+
+
+def run_single(torch, record):
+    """Phase 8: one NLP at a time through ``optimize`` on the card, held to
+    the JAX package's result on the same problem."""
+    import numpy as np
+
+    import sqpsolver_tpu_torch as tp
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.models import hs
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar
+    from sqpsolver_tpu_torch.models.power import case9
+    from sqpsolver_tpu_torch.models.toy import toy_nlp
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+
+    anchor = _anchor("anchor_hs.json")
+    drives = anchor["params"]["drives"]
+    ls, trust = anchor["params"]["SQP-LS"], anchor["params"]["SQP-TR"]
+    runs = [
+        ("drive toy", toy_nlp(), dict(drives["toy"], OutputFlag=1, StatisticsFlag=1),
+         anchor["drives"]["toy"]),
+        ("drive hs071", hs.hs_problem("hs071").nlp, drives["hs071"], anchor["drives"]["hs071"]),
+        ("drive case9", acopf_polar(case9(), scenario_batchable=False), drives["case9"],
+         anchor["drives"]["case9"]),
+        ("SQP-LS toy", toy_nlp(), ls, anchor["SQP-LS"]["toy"]),
+    ]
+    runs += [(f"SQP-LS {name}", hs.hs_problem(name).nlp, ls, anchor["SQP-LS"][name])
+             for name in ("hs071", "hs014", "hs100")]
+    runs += [(f"SQP-TR {name}", getattr(hs, f"{name}_nlp")(), trust, anchor["SQP-TR"][name])
+             for name in ("infeasible", "unbounded")]
+    chol_tile.launches = 0
+    syncs0 = any_lane.syncs
+    t_phase = time.perf_counter()
+    failures = []
+    for label, nlp, kw, want in runs:
+        t0 = time.perf_counter()
+        res = tp.optimize(nlp, tp.Parameters(**kw))  # the card by default
+        wall = time.perf_counter() - t0
+        ok = int(res.status) == want["status"]
+        rel = abs(res.obj_val - want["obj"]) / max(1.0, abs(want["obj"]))
+        if tp.is_success(want["status"]):
+            ok = ok and rel <= OBJ_RTOL
+        if kw.get("StatisticsFlag"):
+            rows = {k: v.shape for k, v in res.statistics.items()}
+            log(f"single: {label}: statistics {sorted(rows)} of {set(rows.values())} rows")
+            ok = ok and set(rows.values()) == {(res.iterations + 1,)}
+        log(f"single: {label}: {res.status_name} obj {res.obj_val:.10g} in {res.iterations} "
+            f"iterations ({res.qp_iters_total} QP trips), wall {wall:.3f} s; JAX "
+            f"{tp.status_name(want['status'])} obj {want['obj']:.10g} in {want['iterations']} "
+            f"iterations ({want['qp_iters_total']} QP trips); rel. obj diff {rel:.2e}"
+            + ("" if ok else "  <-- MISMATCH"))
+        if not np.all(np.isfinite(res.x)) or res.x.shape != (nlp.n,):
+            ok = False
+        if not ok:
+            failures.append(label)
+    launches = chol_tile.launches
+    record["launches"] += launches
+    record["launches_by_path"]["single_nlp"] = launches
+    log(f"single: {len(runs)} solves in {time.perf_counter() - t_phase:.3f} s, "
+        f"{any_lane.syncs - syncs0} host syncs, {launches} chol_tile launches (float64 "
+        f"direct factors go to the library)")
+    if failures:
+        raise AssertionError(f"single: off the JAX anchor: {failures}")
+
+
+def run_ls_case30(torch, record):
+    """Phase 9: the case30 configuration under SQP-LS through the package's
+    ``make_solver`` dispatch."""
+    import numpy as np
+
+    import sqpsolver_tpu_torch as tp
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.algorithms.sqp_ls import backtracking_alphas
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu_torch.models.matpower import load_case
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+
+    anchor = _anchor("anchor_ls_case30_b32.json")
+    case = load_case(anchor["case"])
+    nlp = acopf_polar(case)
+    batch = anchor["batch"]
+    theta = load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
+    params = tp.Parameters(**anchor["params"])
+    solver = tp.make_solver(nlp, params)
+    log(f"ls_case30: {case.name} n={nlp.n} m={nlp.m} batch={batch} params={anchor['params']}")
+    data = tp.batch_data(nlp, batch, theta=theta)  # on the card by default
+    torch.cuda.synchronize()
+    chol_tile.launches = 0
+    syncs0 = any_lane.syncs
+    t0 = time.perf_counter()
+    out = solver(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chol_tile.launches
+    syncs = any_lane.syncs - syncs0
+    record["launches"] += launches
+    record["launches_by_path"]["ls_case30_b32"] = launches
+
+    status = out.status.cpu().numpy()
+    obj = out.obj_val.cpu().numpy()
+    ref_status = np.asarray(anchor["lanes"]["status"])
+    ref = np.asarray(anchor["lanes"]["obj"])
+    ref_ok = np.isin(ref_status, [0, 1, 6])
+    ok = np.isin(status, [0, 1, 6])
+    rel = np.abs(obj - ref) / np.abs(ref)
+    iters = int(out.iterations.sum().item())
+    batched_iters = int(out.iterations.max().item()) - 1
+    trials = len(backtracking_alphas(params.tau, params.min_alpha, torch.float64)) * batch
+    n_ok = int(ok.sum())
+    log(f"ls_case30: wall {wall:.4f} s, {iters} SQP iterations ({iters / wall:.2f} SQP-iter/s), "
+        f"{n_ok}/{batch} solved ({n_ok / wall:.3f} solves/s), "
+        f"{int(out.qp_iters_total.sum().item())} IPM trips, {syncs} host syncs, {launches} "
+        f"chol_tile launches; {batched_iters} batched iterations, each evaluating {trials} "
+        f"Armijo trial points in one call; {int(out.n_soc_accept.sum().item())} SOC steps")
+    log(f"ls_case30: JAX anchor {int(ref_ok.sum())}/{batch} solved, "
+        f"{anchor['totals']['iterations']} iterations, {anchor['totals']['qp_trips']} IPM trips "
+        f"({anchor['reference']['platform']}, kkt_backend={anchor['reference']['kkt_backend']}); "
+        f"per-lane iterations equal to the anchor's on {int((out.iterations.cpu().numpy() == np.asarray(anchor['lanes']['iterations'])).sum())}/{batch} lanes")
+    log(f"ls_case30: objective rel. diff to the anchor over the lanes it solved: max "
+        f"{rel[ref_ok].max():.3e} (tol {OBJ_RTOL:g}); statuses {sorted(set(status.tolist()))}")
+    if out.x.shape != (batch, nlp.n) or not torch.isfinite(out.x).all().item():
+        raise AssertionError("ls_case30: x is not finite of shape (batch, n)")
+    if not ok[ref_ok].all():
+        raise AssertionError(
+            f"ls_case30: lanes the anchor solved and the port did not: {np.nonzero(ref_ok & ~ok)[0]}"
+        )
+    if not (rel[ref_ok] <= OBJ_RTOL).all():
+        raise AssertionError(f"ls_case30: lanes off the anchor: {np.nonzero(ref_ok & (rel > OBJ_RTOL))[0]}")
+    if launches <= 0:
+        raise AssertionError("ls_case30: the Cholesky kernel was never launched")
+
+
 def case118_solver(torch, max_iter=None):
     """The case118 path's configuration from its anchor file, through the
     port's public entry points; ``max_iter`` cuts the depth (the profile)."""
@@ -533,8 +687,9 @@ def main() -> int:
         help="SQP iterations (max_iter) of the profiled case118 run (default 8)",
     )
     ap.add_argument(
-        "--paths", default="case30,case118",
-        help="the paths to drive (default both; a partial run prints no closing ok line)",
+        "--paths", default=",".join(PATHS),
+        help=f"the paths to drive (default all: {','.join(PATHS)}; a partial run prints no "
+             "closing ok line)",
     )
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -575,13 +730,17 @@ def main() -> int:
         run_case118(torch, record)
         if args.profile118:
             profile_case118(torch, args.profile118_iters, args.profile118)
+    if "single" in paths:
+        run_single(torch, record)
+    if "ls_case30" in paths:
+        run_ls_case30(torch, record)
     for batch, n in SLICE_SHAPES + PANEL_SHAPES:
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "
             f"its bound, {t['ms'] / t['library_ms']:.3f} of the library call's time")
     log(json.dumps({"kernels": [record]}))
     log(card)
-    if sorted(paths) != ["case118", "case30"]:
+    if sorted(paths) != sorted(PATHS):
         log(json.dumps({"ok": False, "reason": f"partial run: paths {paths}"}))
         return 0
     log(json.dumps({

@@ -15,11 +15,23 @@ cannot drift apart.
   re-solve (float64 IPM phase 2) of the lanes that ended in
   ``Error_In_Step_Computation``.  The first pass is also run on its own, so
   the file can say which lanes took the fallback.
+* ``--algorithm SQP-LS`` (case30 b32): the same configuration under the
+  line-search driver, one vmapped solve of the JAX package's
+  ``make_ls_solver(...)._raw``; written to ``anchor_ls_case30_b32.json``.
+* ``--hs``: the single-NLP battery: every Hock-Schittkowski problem, the
+  toy problem and the two pathological problems (``infeasible_nlp``,
+  ``unbounded_nlp``) through ``optimize`` under SQP-TR with the TR battery's
+  parameters and under SQP-LS with the LS battery's, plus the three drives
+  of the verify recipe (toy and hs071 at ``max_iter=200``, ACOPF case9 with
+  its tolerances).  Each solve's status, objective, ``x``, iterations,
+  ``prim_infeas`` and counters go to ``anchor_hs.json``.
 
 Usage::
 
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py [--case C] [--batch B]
-        [--backend pallas|xla] [--max-iter N] [--cache-dir DIR] [--out PATH]
+        [--algorithm SQP-TR|SQP-LS] [--backend pallas|xla] [--max-iter N]
+        [--cache-dir DIR] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --hs [--out PATH]
 
 The reference's factorization backend defaults to the path's own,
 ``kkt_backend="pallas"``: on the CPU the JAX Cholesky kernel runs in
@@ -87,17 +99,128 @@ def lanes_of(out) -> dict:
     )
 
 
+#: the single-NLP battery's parameters: the JAX package's HS batteries
+#: (``tests/test_hs.py`` ``PARAMS``, ``tests/test_ls.py`` ``BATTERY_PARAMS``)
+#: and the verify recipe's drives
+HS_PARAMS = {
+    "SQP-TR": dict(max_iter=500, OutputFlag=0),
+    "SQP-LS": dict(algorithm="SQP-LS", max_iter=500, OutputFlag=0),
+}
+DRIVE_PARAMS = {
+    "toy": dict(max_iter=200, OutputFlag=0),
+    "hs071": dict(max_iter=200, OutputFlag=0),
+    "case9": dict(max_iter=100, OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4,
+                  use_soc=True),
+}
+
+
+def result_record(res) -> dict:
+    """One ``optimize`` result as stored in ``anchor_hs.json``."""
+    return dict(
+        status=int(res.status),
+        obj=float(res.obj_val),
+        x=[float(v) for v in np.asarray(res.x)],
+        iterations=int(res.iterations),
+        prim_infeas=float(res.prim_infeas),
+        dual_infeas=float(res.dual_infeas),
+        qp_iters_total=int(res.qp_iters_total),
+        n_accept=int(res.n_accept),
+        n_reject=int(res.n_reject),
+        n_soc_accept=int(res.n_soc_accept),
+        n_fr_iters=int(res.n_fr_iters),
+    )
+
+
+def _hs_problems() -> dict:
+    from sqpsolver_tpu.models import hs
+    from sqpsolver_tpu.models.toy import toy_nlp
+
+    problems = {name: hs.hs_problem(name).nlp for name in hs.hs_names()}
+    problems.update(toy=toy_nlp(), infeasible=hs.infeasible_nlp(),
+                    unbounded=hs.unbounded_nlp())
+    return problems
+
+
+def _drive_problem(name: str):
+    from sqpsolver_tpu.models.acopf import acopf_polar
+    from sqpsolver_tpu.models.power import case9
+
+    if name == "case9":
+        return acopf_polar(case9(), scenario_batchable=False)
+    return _hs_problems()[name]
+
+
+def _worker_init() -> None:
+    sys.path.insert(0, ROOT)
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+
+
+def _solve_one(task) -> dict:
+    """One single-NLP solve through the JAX package's ``optimize``."""
+    import sqpsolver_tpu as sqp
+
+    kind, name, kw = task
+    nlp = _drive_problem(name) if kind == "drives" else _hs_problems()[name]
+    return result_record(sqp.optimize(nlp, sqp.Parameters(**kw)))
+
+
+def run_hs(out_path: str) -> None:
+    """``--hs``: the single-NLP anchors (see the module docstring).  Each
+    solve compiles its own program; XLA:CPU runs out of code memory after
+    some 80 of them in one process, so the solves run in worker processes of
+    20 solves each."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import jax
+
+    t0 = time.time()
+    tasks = [(alg, name, kw) for alg, kw in HS_PARAMS.items() for name in _hs_problems()]
+    tasks += [("drives", name, kw) for name, kw in DRIVE_PARAMS.items()]
+    record = dict(
+        reference=dict(
+            package="JAX reference package",
+            platform=jax.devices()[0].platform,
+            jax_version=jax.__version__,
+        ),
+        params=dict(HS_PARAMS, drives=DRIVE_PARAMS),
+        **{kind: {} for kind in list(HS_PARAMS) + ["drives"]},
+    )
+    for start in range(0, len(tasks), 20):
+        part = tasks[start:start + 20]
+        with ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init,
+        ) as pool:
+            for (kind, name, _), rec in zip(part, pool.map(_solve_one, part)):
+                record[kind][name] = rec
+                print(f"[{time.time() - t0:7.1f}s] {kind} {name}: {rec['status']} "
+                      f"{rec['obj']:.10g} in {rec['iterations']}", file=sys.stderr, flush=True)
+    record["reference"]["seconds_with_compile"] = round(time.time() - t0, 1)
+    with open(out_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+    print(f"{len(tasks)} solves in {time.time() - t0:.1f}s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--case", default="case30", choices=sorted(CHUNKED))
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--algorithm", default="SQP-TR", choices=["SQP-TR", "SQP-LS"])
+    ap.add_argument("--hs", action="store_true",
+                    help="write the single-NLP anchors (anchor_hs.json) instead")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--max-iter", type=int, default=PARAMS["max_iter"])
     ap.add_argument("--cache-dir", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    ls = "ls_" if args.algorithm == "SQP-LS" else ""
     out_path = args.out or os.path.join(
-        DATA, f"anchor_{args.case}_b{args.batch}.json"
+        DATA, "anchor_hs.json" if args.hs else f"anchor_{ls}{args.case}_b{args.batch}.json"
     )
 
     sys.path.insert(0, ROOT)
@@ -105,6 +228,11 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_enable_x64", True)
+    if args.hs:
+        run_hs(out_path)
+        return
+    if ls and CHUNKED[args.case]:
+        raise SystemExit("--algorithm SQP-LS drives the monolithic case30 path only")
     if args.cache_dir:
         jax.config.update("jax_compilation_cache_dir", args.cache_dir)
         jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
@@ -127,7 +255,7 @@ def main() -> None:
         batch=args.batch,
         seed=7,
         spread=0.03,
-        params=dict(PARAMS, max_iter=args.max_iter),
+        params=dict(PARAMS, max_iter=args.max_iter, algorithm=args.algorithm),
     )
     chunked = CHUNKED[args.case]
     if chunked:
@@ -162,6 +290,10 @@ def main() -> None:
         extra["fallback_lanes"] = np.where(failed)[0].astype(int).tolist()
         log(f"first pass done; fallback lanes {extra['fallback_lanes']}")
         out = make_chunked_batch_solver(nlp, params, log=log, **chunked)(data)
+    elif ls:
+        from sqpsolver_tpu.algorithms.sqp_ls import make_ls_solver
+
+        out = jax.jit(jax.vmap(make_ls_solver(nlp, params, verbose=False)._raw))(data)
     else:
         out = make_batch_solver(nlp, params)(data)
     jax.block_until_ready(out.x)

@@ -11,7 +11,17 @@ Tensors go to the CUDA card unless the caller names another device:
 take ``device=None`` (the card) and raise where there is none; pass
 ``device="cpu"`` to run on the CPU.  The solver runs where its data lies.
 
-Quick start (batched ACOPF on case30, on the GPU)::
+Quick start (one NLP, on the GPU; ``device="cpu"`` runs it on the CPU)::
+
+    import sqpsolver_tpu_torch as sqp
+    from sqpsolver_tpu_torch.models.hs import hs_problem
+    res = sqp.optimize(hs_problem("hs071").nlp, sqp.Parameters(max_iter=200))
+    print(res.x, res.status_name)
+
+The compute dtype is ``Parameters.dtype`` (float64 by default); there is no
+switch to turn float64 on, as the JAX package's ``enable_x64`` does.
+
+Batched ACOPF on case30, on the GPU::
 
     import torch
     from sqpsolver_tpu_torch import Parameters, batch_data, make_batch_solver
@@ -29,7 +39,11 @@ Quick start (batched ACOPF on case30, on the GPU)::
 
 from __future__ import annotations
 
-from .algorithms.sqp_tr import SqpResult, SqpState, make_solver
+import time as _time
+
+import torch as _torch
+
+from .algorithms.sqp_tr import SqpResult, SqpState
 from .convert import (
     nlp_data_to_torch,
     result_to_numpy,
@@ -44,7 +58,9 @@ from .parallel.batch import (
     make_chunked_batch_solver,
     summarize_batch,
 )
+from .nlp import resolve_device
 from .parameters import Parameters, get_parameter, set_parameter
+from .results import Results, from_raw
 from .status import STATUS_NAME, Status, is_success, status_name
 
 __version__ = "0.1.0"
@@ -53,12 +69,14 @@ __all__ = [
     "NLP",
     "NLPData",
     "Parameters",
+    "Results",
     "STATUS_NAME",
     "SqpResult",
     "SqpState",
     "Status",
     "batch_data",
     "build_nlp",
+    "from_raw",
     "get_parameter",
     "initial_point",
     "is_success",
@@ -66,6 +84,7 @@ __all__ = [
     "make_chunked_batch_solver",
     "make_solver",
     "nlp_data_to_torch",
+    "optimize",
     "result_to_numpy",
     "set_parameter",
     "sqp_state_to_numpy",
@@ -74,3 +93,42 @@ __all__ = [
     "summarize_batch",
     "theta_to_torch",
 ]
+
+
+def make_solver(nlp: NLP, params: Parameters = Parameters(), **kw):
+    """Build the batched solve function (batched :class:`NLPData` ->
+    batched :class:`SqpResult`) of ``params.algorithm``: "SQP-TR"
+    (``algorithms.sqp_tr.make_solver``) or "SQP-LS"
+    (``algorithms.sqp_ls.make_ls_solver``); ``kw`` goes to that constructor
+    (``verbose``)."""
+    if params.algorithm == "SQP-TR":
+        from .algorithms.sqp_tr import make_solver as build
+    elif params.algorithm == "SQP-LS":
+        from .algorithms.sqp_ls import make_ls_solver as build
+    else:
+        # reference: unknown algorithm -> status -12 Invalid_Option
+        # (src/model.jl:86-90); fail loudly at build time instead
+        raise ValueError(
+            f"unknown algorithm {params.algorithm!r} (Invalid_Option); "
+            "expected 'SQP-TR' or 'SQP-LS'"
+        )
+    return build(nlp, params, **kw)
+
+
+def optimize(nlp: NLP, params: Parameters = Parameters(), *, device=None, **kw) -> Results:
+    """Solve one NLP end to end and return host-side :class:`Results`.
+
+    The NLP is solved as a batch of one lane on ``device`` (``None``: the
+    CUDA card, and a ``RuntimeError`` naming ``device="cpu"`` where there is
+    none); ``solve_time`` runs until the card has finished.  ``kw`` goes to
+    :func:`make_solver` (``verbose``).
+    """
+    device = resolve_device(device)
+    solver = make_solver(nlp, params, **kw)
+    dtype = _torch.float64 if params.dtype == "float64" else _torch.float32
+    data = batch_data(nlp, 1, dtype=dtype, device=device)
+    t0 = _time.time()
+    raw = solver(data)
+    if device.type == "cuda":
+        _torch.cuda.synchronize(device)
+    return from_raw(raw, _time.time() - t0)

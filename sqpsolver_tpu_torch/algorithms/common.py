@@ -120,6 +120,16 @@ def kt_residuals(df, lam, mult_x_U, mult_x_L, jac):
     )
 
 
+def norm_complementarity(E, g_l, g_u, lam):
+    """Normalized complementarity (the reference's ``common.jl:30-47``),
+    infinity norm: equality rows contribute zero; inequality rows contribute
+    ``min(E - g_l, g_u - E) * lam``, normalized by ``1 + ||lam_ineq||_2``."""
+    is_eq = g_l == g_u
+    compl = torch.where(is_eq, 0.0, torch.minimum(E - g_l, g_u - E) * lam)
+    denom = torch.sqrt(torch.sum(torch.where(is_eq, 0.0, lam * lam), dim=-1))
+    return amax0(torch.abs(compl)) / (1.0 + denom)
+
+
 def schur_cap_for(params, nlp) -> int:
     """Resolve Parameters.schur_cap into a concrete IpmOptions.schur_cap:
     the static equality count plus headroom for active inequalities (at

@@ -15,16 +15,20 @@ Ported: ``init_state`` with the initial linear-feasibility projection,
 (``solve_soc``), ``stages_post_qp`` with FR and the status rules, and
 ``finalize``; ``qp_rescue`` and ``mixed_polish`` hand the IPM its float64
 phase 2.  The solve function carries its three stages as ``init_state``,
-``run_until`` and ``finalize`` for the chunked batch solver.  Not ported
-yet (``NotImplementedError``): the structured KKT path and per-iteration
-statistics (``StatisticsFlag``).  The iteration printer (``OutputFlag``)
-is not ported: the port prints nothing.
+``run_until`` and ``finalize`` for the chunked batch solver and the
+checkpointed solve.  The iteration printer (``OutputFlag``) prints the JAX
+package's lines for a one-lane solve; per-iteration statistics
+(``StatisticsFlag``) fill fixed ``(B, max_iter + 1)`` tensors, one row per
+iteration of each lane.  Not ported yet (``NotImplementedError``): the
+structured KKT path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -88,6 +92,9 @@ class SqpState:
     n_soc_accept: torch.Tensor
     n_fr_iters: torch.Tensor
     n_qp_bad: torch.Tensor
+    #: per-iteration statistics (``StatisticsFlag``): a dict of ``(B,
+    #: max_iter + 1)`` tensors, row ``iter`` written by each iteration
+    stats: Optional[dict] = None
 
     def replace(self, **kw) -> "SqpState":
         return dataclasses.replace(self, **kw)
@@ -148,17 +155,24 @@ def _true_float32_matmul():
         torch.set_float32_matmul_precision(precision)
 
 
-def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPData], SqpResult]:
+def make_solver(
+    nlp: NLP, params: Parameters = Parameters(), *, verbose: Optional[bool] = None
+) -> Callable[[NLPData], SqpResult]:
     """Build the batched SQP-TR solve function: batched :class:`NLPData`
     (every tensor with a leading lane axis) -> batched :class:`SqpResult`.
     Each solve runs with TF32 matmuls off and restores the caller's
-    float32 matmul precision when it returns."""
+    float32 matmul precision when it returns.
+
+    ``verbose`` (default ``params.OutputFlag``) prints a header and one line
+    per SQP iteration, as the JAX package does, when the batch has one lane;
+    a batch of several lanes prints nothing."""
     if params.algorithm != "SQP-TR":
         raise ValueError(f"make_solver builds SQP-TR; got algorithm={params.algorithm!r}")
     if params.kkt_structured:
         raise _not_ported("kkt_structured=True", "ROADMAP, later-PR list item 11")
-    if params.StatisticsFlag:
-        raise _not_ported("StatisticsFlag", "ROADMAP, later-PR list item 10")
+    collect_stats = bool(params.StatisticsFlag)
+    log_iters = bool(params.OutputFlag) if verbose is None else verbose
+    solve_t0 = [0.0]
     n, m = nlp.n, nlp.m
     n_lin = nlp.num_linear
     dtype = torch.float64 if params.dtype == "float64" else torch.float32
@@ -344,6 +358,61 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
             x_t = st.x
         return qval + st.mu * viol1(E_lin, x_t, d)
 
+    # ------------------------------------------------------------ logging ---
+    def emit_log(st: SqpState):
+        """One iteration line of a one-lane solve: the ten values it prints
+        come to the host in one transfer."""
+        if not log_iters or st.x.shape[0] != 1:
+            return
+        lmax = torch.maximum(
+            _inf_norm(st.lam), torch.maximum(_inf_norm(st.mult_lo), _inf_norm(st.mult_up))
+        )
+        vals = torch.stack([
+            v[0].to(torch.float64) for v in (
+                st.iter, st.step_accepted, st.fr, st.f, st.phi, st.mu, lmax, st.tr,
+                _inf_norm(st.p), st.prim_infeas, st.dual_infeas,
+            )
+        ]).tolist()
+        it, acc, fr, f, phi, mu, lmax, tr, pnorm, pr, du = vals
+        mark = "FR" if fr else "  "
+        a = "a" if acc else "r"
+        pr_s = f"{pr:6.8e}" if math.isfinite(pr) else "           Inf"
+        du_s = f"{du:6.8e}" if math.isfinite(du) else "           Inf"
+        print(
+            f"{mark}{int(it):6d}{a}  {f:+6.8e}  {phi:+6.8e}"
+            f"  {mu:+6.8e}  {lmax:+6.8e}  {tr:6.8e}"
+            f"  {pnorm:6.8e}  {pr_s}  {du_s}"
+            f"  {time.time() - solve_t0[0]:10.2f}"
+        )
+
+    # ------------------------------------------------------- statistics -----
+    def init_stats(B, device):
+        if not collect_stats:
+            return None
+
+        def z(dt=dtype):
+            return torch.zeros((B, max_iter + 1), dtype=dt, device=device)
+
+        return dict(
+            f=z(), phi=z(), mu=z(), tr=z(), p_norm=z(),
+            inf_pr=z(), inf_du=z(), qp_iters=z(),
+            accepted=z(torch.int32), fr=z(torch.int32),
+        )
+
+    def record_stats(st: SqpState, qp_iters):
+        """Write this iteration's row (``iter``, clipped to ``max_iter``) of
+        every lane; lanes that are done get theirs back from the loop's
+        select."""
+        if not collect_stats:
+            return st.stats
+        i = torch.clamp(st.iter, 0, max_iter).to(torch.int64)[:, None]
+        vals = dict(
+            f=st.f, phi=st.phi, mu=st.mu, tr=st.tr, p_norm=_inf_norm(st.p),
+            inf_pr=st.prim_infeas, inf_du=st.dual_infeas, qp_iters=qp_iters.to(dtype),
+            accepted=st.step_accepted.to(torch.int32), fr=st.fr.to(torch.int32),
+        )
+        return {k: st.stats[k].scatter(1, i, v[:, None]) for k, v in vals.items()}
+
     # ----------------------------------------------------------- the loop ---
     def stage_refresh(st: SqpState, d: NLPData) -> SqpState:
         """Refresh evaluations on lanes whose last step was accepted."""
@@ -447,6 +516,9 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
         # 4. refresh the merit after accepted steps, with the current mu
         phi_new = merit(st.f, st.E, st.x, st.mu, st.fr, d)
         st = st.replace(phi=torch.where(live_step & st.step_accepted, phi_new, st.phi))
+
+        emit_log(st)
+        st = st.replace(stats=record_stats(st, sol.iters))
 
         # 5. tiny direction: in FR exit restoration (or declare infeasible
         #    when clearly infeasible); otherwise converged
@@ -598,6 +670,7 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
             done=nan_f,
             qp_iters_total=full(0, i32), n_accept=full(0, i32), n_reject=full(0, i32),
             n_soc_accept=full(0, i32), n_fr_iters=full(0, i32), n_qp_bad=full(0, i32),
+            stats=init_stats(B, dev),
         )
 
     # ------------------------------------------------------------- driver ---
@@ -633,9 +706,17 @@ def make_solver(nlp: NLP, params: Parameters = Parameters()) -> Callable[[NLPDat
             n_reject=st.n_reject,
             n_soc_accept=st.n_soc_accept,
             n_fr_iters=st.n_fr_iters,
+            stats=st.stats,
         )
 
     def solve(d: NLPData) -> SqpResult:
+        solve_t0[0] = time.time()
+        if log_iters and d.x0.shape[0] == 1:
+            print(
+                f"  {'iter':>6}   {'f(x_k)':>15}  {'phi(x_k)':>15}  {'mu':>15}"
+                f"  {'|lam|inf':>15}  {'Delta':>14}  {'|p|':>14}"
+                f"  {'inf_pr':>14}  {'inf_du':>14}  {'time':>10}"
+            )
         with _true_float32_matmul():
             return finalize(run_until(init_state(d), d, max_iter), d)
 

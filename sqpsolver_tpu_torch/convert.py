@@ -55,28 +55,45 @@ def sqp_state_to_torch(state, *, device=None, dtype=torch.float64) -> SqpState:
     """A batched solver state of arrays (the JAX package's ``SqpState``, or
     any object with its fields) -> this package's :class:`SqpState` on
     ``device`` (``None``: the CUDA card).  Floating fields go to ``dtype``,
-    flags to bool and counters to int32; the JAX state's per-iteration
-    ``stats`` have no counterpart here and are dropped."""
+    flags to bool and counters to int32, the per-iteration ``stats`` (a dict
+    of arrays, or ``None``) likewise."""
     device = resolve_device(device)
-    out = {}
-    for f in dataclasses.fields(SqpState):
-        a = np.array(getattr(state, f.name))
+
+    def conv(a):
+        a = np.array(a)
         if a.dtype == np.bool_:
             kind = torch.bool
         elif np.issubdtype(a.dtype, np.integer):
             kind = torch.int32
         else:
             kind = dtype
-        out[f.name] = torch.as_tensor(a, dtype=kind, device=device)
+        return torch.as_tensor(a, dtype=kind, device=device)
+
+    out = {}
+    for f in dataclasses.fields(SqpState):
+        val = getattr(state, f.name)
+        if f.name == "stats":
+            out[f.name] = None if val is None else {k: conv(v) for k, v in val.items()}
+        else:
+            out[f.name] = conv(val)
     return SqpState(**out)
 
 
 def sqp_state_to_numpy(state: SqpState) -> dict:
-    """This package's :class:`SqpState` -> dict of numpy arrays by field."""
-    return {
-        f.name: getattr(state, f.name).detach().cpu().numpy()
-        for f in dataclasses.fields(SqpState)
-    }
+    """This package's :class:`SqpState` -> dict of numpy arrays by field
+    (``stats``: a dict of arrays, or ``None``)."""
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    out = {}
+    for f in dataclasses.fields(SqpState):
+        val = getattr(state, f.name)
+        if f.name == "stats":
+            out[f.name] = None if val is None else {k: host(v) for k, v in val.items()}
+        else:
+            out[f.name] = host(val)
+    return out
 
 
 def result_to_numpy(result) -> dict:

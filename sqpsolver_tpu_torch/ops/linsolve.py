@@ -51,9 +51,13 @@ def _chol_ok(L: torch.Tensor) -> torch.Tensor:
 
 
 def _chol_library(A: torch.Tensor) -> torch.Tensor:
-    """``torch.linalg.cholesky_ex`` with its ``info`` failure mapped to a
-    NaN factor, the JAX ``jnp.linalg.cholesky`` contract."""
-    L, info = torch.linalg.cholesky_ex(A)
+    """``torch.linalg.cholesky_ex`` of the symmetrized ``(A + A^T) / 2`` with
+    its ``info`` failure mapped to a NaN factor: the JAX
+    ``jnp.linalg.cholesky`` contract.  ``cholesky_ex`` reads the lower
+    triangle only; the assembled Schur complement ``A K^-1 A^T`` is symmetric
+    only to rounding, and a factor of its lower triangle misfits the matrix
+    that the refinement sweep takes residuals against."""
+    L, info = torch.linalg.cholesky_ex((A + A.transpose(-1, -2)) / 2)
     return torch.where((info == 0)[:, None, None], L, torch.nan)
 
 

@@ -66,8 +66,11 @@ def make_batch_solver(
     nlp: NLP, params: Parameters = Parameters()
 ) -> Callable[[NLPData], SqpResult]:
     """Batched solver: batched NLPData -> batched SqpResult, on the device
-    the data lies on."""
-    return make_solver(nlp, params)
+    the data lies on; SQP-TR or SQP-LS as ``params.algorithm`` says, and
+    silent (no iteration log)."""
+    from .. import make_solver as dispatch
+
+    return dispatch(nlp, params, verbose=False)
 
 
 def make_chunked_batch_solver(
@@ -114,7 +117,7 @@ def make_chunked_batch_solver(
     one iteration per call.  A CUDA stream has no such limit and the port
     compiles nothing per shape.
     """
-    solver = make_solver(nlp, params)
+    solver = make_solver(nlp, params.replace(OutputFlag=0))  # no iteration log
     max_iter = params.max_iter
     k = max(1, min(int(chunk0), int(max_chunk)))
     fallback: list = []

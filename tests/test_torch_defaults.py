@@ -4,7 +4,8 @@ and the port reads its own copies of the MATPOWER case files.
 * ``batch_data``, ``NLP.data``, ``nlp_data_to_torch`` and ``theta_to_torch``
   take ``device=None``, meaning the CUDA card.  Without a card they raise a
   ``RuntimeError`` that names ``device="cpu"`` and return nothing; with
-  ``device="cpu"`` they give CPU tensors as before.
+  ``device="cpu"`` they give CPU tensors as before.  The single-NLP entry
+  points ``optimize`` and ``presolve_start`` do the same.
 * ``sqpsolver_tpu_torch/data/*.m`` is byte-identical to the JAX package's
   ``sqpsolver_tpu/models/data/*.m`` (read by path) but for one header comment,
   where the original names the reference checkout by an absolute path and the
@@ -22,6 +23,7 @@ import torch
 import sqpsolver_tpu_torch as tp
 from sqpsolver_tpu_torch.models import matpower
 from sqpsolver_tpu_torch.models.toy import toy_nlp
+from sqpsolver_tpu_torch.utils.warmstart import presolve_start
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DATA = os.path.join(REPO, "sqpsolver_tpu_torch", "data")
@@ -45,6 +47,24 @@ def test_entry_point_needs_the_card_unless_asked_for_the_cpu(name):
     call = ENTRY_POINTS[name]
     on_cpu = call(device="cpu")
     assert on_cpu.device.type == "cpu" and on_cpu.dtype == torch.float64
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default cannot fail here")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+
+
+SOLVES = {
+    "optimize": lambda **kw: tp.optimize(toy_nlp(), tp.Parameters(max_iter=2, OutputFlag=0), **kw).x,
+    "presolve_start": lambda **kw: presolve_start(
+        toy_nlp(), tp.Parameters(max_iter=2, OutputFlag=0), **kw
+    ).x0[0].numpy(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SOLVES))
+def test_single_nlp_solve_needs_the_card_unless_asked_for_the_cpu(name):
+    call = SOLVES[name]
+    assert call(device="cpu").shape == (2,)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default cannot fail here")
     with pytest.raises(RuntimeError, match='device="cpu"'):

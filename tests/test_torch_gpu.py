@@ -27,7 +27,13 @@ JAX it runs on its own, without the suite's JAX conftest::
   devices;
 * the case118 model evaluates bit for bit the same every time on the card
   (constraints, Jacobian, Lagrangian Hessian: bus sums in a fixed order, no
-  atomics), and so do two solves of the first five iterations.
+  atomics), and so do two solves of the first five iterations;
+* ``optimize`` runs on the card by default, and hs014 (SQP-TR and SQP-LS)
+  and hs071 (SQP-TR) end there as on the CPU: the same status and
+  iterations, objectives within 1e-10 relative;
+* the line search on the card: ACOPF case5 under SQP-LS, 4 load scenarios,
+  against the same solve on the CPU (statuses equal and solved, objectives
+  within 1e-7 relative, the kernel launched).
 """
 
 import numpy as np
@@ -180,3 +186,33 @@ def test_case118_is_bit_reproducible_on_the_card(cuda):
     one, two = solver(data), solver(data)
     for key in ("x", "obj_val", "qp_iters_total", "status"):
         assert torch.equal(getattr(one, key), getattr(two, key)), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,algorithm", [("hs014", "SQP-TR"), ("hs014", "SQP-LS"),
+                                            ("hs071", "SQP-TR")])
+def test_optimize_on_card_matches_cpu(cuda, name, algorithm):
+    from sqpsolver_tpu_torch.models.hs import hs_problem
+
+    nlp = hs_problem(name).nlp
+    params = tp.Parameters(max_iter=300, OutputFlag=0, algorithm=algorithm)
+    gpu = tp.optimize(nlp, params)  # the card by default
+    cpu = tp.optimize(nlp, params, device="cpu")
+    assert gpu.success and gpu.status == cpu.status
+    assert gpu.iterations == cpu.iterations
+    assert abs(gpu.obj_val - cpu.obj_val) <= 1e-10 * max(1.0, abs(cpu.obj_val))
+
+
+@pytest.mark.gpu
+def test_line_search_on_card_matches_cpu(cuda):
+    case = load_case("case5")
+    nlp = acopf_polar(case)
+    theta = load_scenarios(case, 4, seed=7, spread=0.03)
+    solver = tp.make_solver(nlp, tp.Parameters(**SLICE, algorithm="SQP-LS"))
+    before = chol_tile.launches
+    gpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device=cuda)))
+    assert chol_tile.launches > before
+    cpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device="cpu")))
+    np.testing.assert_array_equal(gpu["status"], cpu["status"])
+    assert np.isin(gpu["status"], [0, 1, 6]).all()
+    np.testing.assert_allclose(gpu["obj_val"], cpu["obj_val"], rtol=1e-7)

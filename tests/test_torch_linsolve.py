@@ -101,3 +101,21 @@ def test_solve_matrix_rhs_and_triangular_path():
         fact = t_lin.factorize_spd(torch.as_tensor(M), invert=invert)
         X = t_lin.solve_factorized(fact, torch.as_tensor(R)).numpy()
         np.testing.assert_allclose(X, np.linalg.solve(M, R), rtol=1e-10, atol=1e-14)
+
+
+def test_library_factor_symmetrizes_its_input_as_jax_does():
+    """``jnp.linalg.cholesky`` factors ``(A + A^T) / 2``; the port's library
+    route must too (``cholesky_ex`` alone reads the lower triangle).  An
+    assembled Schur complement is symmetric only to rounding, and a factor of
+    its lower triangle misfits the matrix the refinement sweep takes
+    residuals against (ROADMAP Queue 3: the interior-point solve of hs047's
+    first SQP-LS subproblem stalled in the port and converged in JAX)."""
+    rng = np.random.default_rng(7)
+    G = rng.standard_normal((3, 8, 8))
+    M = G @ G.transpose(0, 2, 1) / 8 + 0.1 * np.eye(8)
+    M = M + 1e-3 * np.triu(rng.standard_normal((3, 8, 8)), 1)  # upper triangle off
+    want = np.asarray(jnp.linalg.cholesky(jnp.asarray(M)))
+    got = t_lin._chol_library(torch.as_tensor(M)).numpy()
+    lower_only = np.linalg.cholesky(np.tril(M) + np.tril(M, -1).transpose(0, 2, 1))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-14)
+    assert np.abs(lower_only - want).max() > 1e-5
