@@ -15,20 +15,24 @@ Phases (any failure raises and the exit code is non-zero):
 3. hold the Cholesky kernel against its plain PyTorch version on the card
    at the case30 path's shapes (32x72x72 K, 32x96x96 capped Schur S), at
    256x128x128, at the case118 path's diagonal blocks (16x128x128, and the
-   ragged last panels 16x88x88 of K and 16x80x80 of S) and at small and odd
-   sizes (3x1x1, 5x7x7, 32x33x33, 32x127x127) that reach every width the
-   kernel is compiled for and its ragged edge: max|dL| / max|L| <= 1e-5 and
-   an exact-zero upper triangle; an indefinite tile must give a non-finite
-   factor on that tile only.  At the first six shapes the kernel, the plain version and one library call
+   ragged last panels 16x88x88 of K and 16x80x80 of S), at the structured
+   case118 path's panels of its Schur complement (8x128x128) and at small
+   and odd sizes (3x1x1, 5x7x7, 32x33x33, 32x127x127) that reach every width
+   the kernel is compiled for and its ragged edge: max|dL| / max|L| <= 1e-5
+   and an exact-zero upper triangle; an indefinite tile must give a
+   non-finite factor on that tile only.  At the first seven shapes the
+   kernel, the plain version and one library call
    that computes the same function (``torch.linalg.cholesky_ex``, a yardstick
    that the package's kernel path never calls) are timed with CUDA events, and
    the least time the card could take (``bound_ms``) is computed from the
    shape;
 4. hold the 128-panel ``cholesky_blocked`` and ``tri_inv_blocked`` at
-   16x344x344 (case118's K) and 16x336x336 (its capped S) against float64
-   ``torch.linalg.cholesky`` / the float64 inverse of the same matrices
-   (max|dL| / max|L| <= 1e-5; max|L Linv - I| <= 1e-4), with the kernel's
-   launch count rising by three per factorization and an indefinite matrix
+   16x344x344 (case118's K), 16x336x336 (its capped S) and 8x896x896 (the
+   stiff Schur complement of structured case118 under ``sub_batch=8``)
+   against float64 ``torch.linalg.cholesky`` / the float64 inverse of the
+   same matrices (max|dL| / max|L| <= 1e-5; max|L Linv - I| <= 1e-4), with
+   the kernel's launch count rising by one per 128-panel (3, 3 and 7) per
+   factorization and an indefinite matrix
    whose bad pivot lies in the third panel giving a non-finite factor on
    that lane only; time both against one library call each
    (``torch.linalg.cholesky_ex``, ``torch.linalg.solve_triangular(L, I)``)
@@ -71,10 +75,26 @@ Phases (any failure raises and the exit code is non-zero):
    solved within 1e-6 relative of its objective, and the kernel's launch
    count over that run must be positive; wall, SQP-iter/s, solves/s, host
    syncs, launches and the Armijo trial points per batched iteration are
-   printed.
+   printed;
+10. the structured (BBD) case118 path: the case118 path's data and
+    parameters with ``kkt_structured=True`` through
+    ``make_chunked_batch_solver(sub_batch=8, rescue_fallback=True)``, as the
+    JAX bench drives it with ``SQP_BENCH_STRUCTURED=1``: ``x`` finite of
+    shape (16, 344), every lane the JAX package solved
+    (``anchor_structured_case118_b16.json``) solved within 1e-6 relative of
+    its objective, the kernel's launch count positive (seven per factorization
+    of the 896-row stiff Schur complement); wall, SQP-iter/s, solves/s,
+    batched trips per IPM phase, host syncs and the lanes that went through
+    the fallback are printed;
+11. one-lane structured solves through ``optimize`` (float64 direct
+    factors): real case118 under the ``ladder`` shift with SOC, also held to
+    the published optimum at 1e-4, and the two-stage coupled case9 problem
+    (three scenarios sharing the non-slack dispatch, ``power`` shift); each
+    must end in the JAX package's status within 1e-6 relative of its
+    objective (``anchor_structured_single.json``).
 
 Standard output ends with these lines, in this order: the kernel's share of
-its bound and its ratio to the library call at the two paths' five shapes; the
+its bound and its ratio to the library call at the paths' six shapes; the
 kernels' JSON record ``{"kernels": [...]}``; the card's name and power limit
 as ``nvidia-smi`` gives them; and last ``{"ok": true, "device": {"platform":
 "gpu", "kind": ..., "count": ...}}``.  This script imports neither JAX nor
@@ -95,12 +115,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1.0e-5  # max|dL| / max|L|, float32 factors of n <= 128
 OBJ_RTOL = 1.0e-6  # per-lane objective against the JAX anchor
 INVERSE_TOL = 1.0e-4  # max|L Linv - I| of the blocked inverse, float32
-BLOCKED = ((16, 344), (16, 336))  # K and the capped Schur S of case118 b16
+BLOCKED = ((16, 344), (16, 336), (8, 896))  # case118 b16's dense K and capped S; its structured S (sub_batch 8)
 SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
 PANEL_SHAPES = ((16, 128), (16, 88), (16, 80))  # case118 b16: K = 128+128+88, S = 128+128+80
-TIMED = SLICE_SHAPES + ((256, 128),) + PANEL_SHAPES
+STRUCTURED_PANEL = (8, 128)  # structured case118, sub_batch 8: S = 7 x 128
+TIMED = SLICE_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,)
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
-PATHS = ("case30", "case118", "single", "ls_case30")  # phases 5, 6, 8, 9
+PATHS = ("case30", "case118", "single", "ls_case30", "structured118", "structured_single")
+# phases 5, 6, 8, 9, 10, 11
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67.0e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -219,6 +241,7 @@ def check_kernel(torch, chol_blocked, card):
         "replaces": "sqpsolver_tpu/ops/chol_blocked.py:116",
         "launches": 0,
         "launches_by_path": {},
+        "launches_per_factorization": {},
         "max_abs_err": worst,
         **main,
         "bit_identical": identical,
@@ -248,12 +271,13 @@ def check_blocked(torch, chol_blocked, card):
         x_rel = ((X - torch.linalg.inv(L64)).abs().max() / X.abs().max()).item()
         log(f"blocked ({batch},{n},{n}): cholesky_blocked max|dL|/max|L| {rel:.3e} (tol "
             f"{KERNEL_TOL:g}) against float64, max|upper| {upper}, {launched} chol_tile "
-            f"launches; tri_inv_blocked max|L Linv - I| {inv_err:.3e} (tol {INVERSE_TOL:g}), "
+            f"launches (one per 128-panel); tri_inv_blocked max|L Linv - I| {inv_err:.3e} (tol {INVERSE_TOL:g}), "
             f"max|dX|/max|X| {x_rel:.3e}")
         if not (rel <= KERNEL_TOL and upper == 0.0 and inv_err <= INVERSE_TOL):
             raise AssertionError(f"blocked routines off at ({batch},{n},{n})")
-        if launched != 3:
-            raise AssertionError(f"cholesky_blocked launched {launched} tiles at n={n}, not 3")
+        panels = -(-n // 128)
+        if launched != panels:
+            raise AssertionError(f"cholesky_blocked launched {launched} tiles at n={n}, not {panels}")
         bad = M[:4].clone()
         bad[2, 300, 300] = -1.0e3  # a bad pivot in the third panel
         finite = torch.isfinite(cholesky_blocked(bad)).flatten(1).all(-1).tolist()
@@ -264,9 +288,13 @@ def check_blocked(torch, chol_blocked, card):
         def solve_triangular(A):
             return torch.linalg.solve_triangular(A, eye32, upper=False)
 
-        # device times: each routine is ~70 launches, so ten calls need a
-        # longer plug to stay queued behind than one kernel launch does
-        timed = dict(reps=15, inner=10, plug_products=12)
+        # device times: each routine is ~70 launches at three panels and
+        # ~160 at seven, and the calls of a window must stay queued behind
+        # the plug.  Ten calls at 896 drained the queue even behind sixty
+        # products (the host then waits to enqueue, likely on the card's
+        # bounded queue of pending launches), so seven panels take four calls
+        big = n > 384
+        timed = dict(reps=15, inner=4 if big else 10, plug_products=60 if big else 12)
         times = {
             "cholesky_blocked_ms": cuda_ms(torch, cholesky_blocked, M, **timed),
             "cholesky_ex_ms": cuda_ms(torch, torch.linalg.cholesky_ex, M, **timed),
@@ -275,7 +303,7 @@ def check_blocked(torch, chol_blocked, card):
             "cholesky_blocked_alone_ms": cuda_ms(torch, cholesky_blocked, M, reps=15),
             "tri_inv_blocked_alone_ms": cuda_ms(torch, tri_inv_blocked, L, reps=15),
         }
-        out[f"{batch}x{n}x{n}"] = times
+        out[f"{batch}x{n}x{n}"] = dict(times, rel_err=rel, inverse_err=inv_err, launches=launched)
         log(f"blocked ({batch},{n},{n}) on {card}: indefinite third panel non-finite on its "
             f"lane only; device time: cholesky_blocked {times['cholesky_blocked_ms']:.4f} ms "
             f"against cholesky_ex {times['cholesky_ex_ms']:.4f} ms; tri_inv_blocked "
@@ -499,21 +527,21 @@ def run_ls_case30(torch, record):
         raise AssertionError("ls_case30: the Cholesky kernel was never launched")
 
 
-def case118_solver(torch, max_iter=None):
-    """The case118 path's configuration from its anchor file, through the
-    port's public entry points; ``max_iter`` cuts the depth (the profile)."""
+def case118_solver(torch, max_iter=None, anchor_file="anchor_case118_b16.json", tag="case118"):
+    """A chunked case118 path's configuration from its anchor file (the
+    dense one by default), through the port's public entry points;
+    ``max_iter`` cuts the depth (the profile)."""
     from sqpsolver_tpu_torch import Parameters, batch_data, make_chunked_batch_solver
     from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
     from sqpsolver_tpu_torch.models.matpower import load_case
 
-    with open(os.path.join(ROOT, "sqpsolver_tpu_torch", "data", "anchor_case118_b16.json")) as fh:
-        anchor = json.load(fh)
+    anchor = _anchor(anchor_file)
     case = load_case(anchor["case"])
     nlp = acopf_polar(case)
     batch = anchor["batch"]
     theta = load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
     kw = dict(anchor["params"], **({} if max_iter is None else {"max_iter": max_iter}))
-    log(f"case118: {case.name} n={nlp.n} m={nlp.m} batch={batch} chunked={anchor['chunked']} "
+    log(f"{tag}: {case.name} n={nlp.n} m={nlp.m} batch={batch} chunked={anchor['chunked']} "
         f"params={kw}")
     solver = make_chunked_batch_solver(nlp, Parameters(**kw), **anchor["chunked"])
 
@@ -528,16 +556,21 @@ def case118_solver(torch, max_iter=None):
     return anchor, nlp, solver, solve
 
 
-def run_case118(torch, record):
-    """Phase 6: the dense case118 path through the chunked solver with its
-    rescue fallback."""
+def run_case118(torch, record, structured=False):
+    """Phase 6 (dense) or 10 (``structured``): a case118 path through the
+    chunked solver with its rescue fallback."""
     import numpy as np
 
     from sqpsolver_tpu_torch._lanes import any_lane
     from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, cholesky_blocked
     from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
 
-    anchor, nlp, solver, solve = case118_solver(torch)
+    tag = "structured118" if structured else "case118"
+    anchor, nlp, solver, solve = case118_solver(
+        torch,
+        anchor_file=f"anchor_{'structured_' if structured else ''}case118_b16.json",
+        tag=tag,
+    )
     batch = anchor["batch"]
     chol_tile.launches = 0
     calls0 = cholesky_blocked.calls
@@ -553,7 +586,8 @@ def run_case118(torch, record):
     trips = {k: solve_qp.loop_trips[k] - trips0[k] for k in trips0}
     secs = {k: solve_qp.phase_seconds[k] - secs0[k] for k in secs0}
     record["launches"] += launches
-    record["launches_by_path"]["case118_b16"] = launches
+    record["launches_by_path"][f"{tag}_b16"] = launches
+    record["launches_per_factorization"][tag] = launches / max(calls, 1)
 
     status = out.status.cpu().numpy()
     obj = out.obj_val.cpu().numpy()
@@ -565,35 +599,99 @@ def run_case118(torch, record):
     iters = int(out.iterations.sum().item())
     lane_trips = int(out.qp_iters_total.sum().item())
     n_ok = int(ok.sum())
-    log(f"case118: wall {wall:.4f} s, {iters} SQP iterations ({iters / wall:.2f} SQP-iter/s), "
+    what = ("S spans seven 128-panels; the interiors and the separator go to the library"
+            if structured else "K and S both span three 128-panels")
+    log(f"{tag}: wall {wall:.4f} s, {iters} SQP iterations ({iters / wall:.2f} SQP-iter/s), "
         f"{n_ok}/{batch} solved ({n_ok / wall:.4f} solves/s), {lane_trips} lane-IPM-trips "
         f"(a rescued QP counts its float64 trips only), {rounds} rounds "
         f"({stats['rounds']} first pass, {stats['fallback_rounds']} fallback), {syncs} host "
-        f"syncs, fallback lanes {stats['fallback_lanes']}")
-    log(f"case118: batched IPM trips phase 1 (float32 factors) {trips[1]} in {secs[1]:.3f} s, "
+        f"syncs, {len(stats['fallback_lanes'])} lanes through the fallback "
+        f"{stats['fallback_lanes']}")
+    log(f"{tag}: batched IPM trips phase 1 (float32 factors) {trips[1]} in {secs[1]:.3f} s, "
         f"phase 2 (float64 factors) {trips[2]} in {secs[2]:.3f} s; {launches} chol_tile "
-        f"launches over {calls} factorizations ({launches / max(calls, 1):.3f} per "
-        f"factorization; K and S both span three 128-panels)")
-    log(f"case118: JAX anchor {int(ref_ok.sum())}/{batch} solved, "
-        f"{anchor['totals']['iterations']} iterations, fallback lanes "
+        f"launches over {calls} kernel-route factorizations ({launches / max(calls, 1):.3f} "
+        f"per factorization; {what})")
+    log(f"{tag}: JAX anchor {int(ref_ok.sum())}/{batch} solved, "
+        f"{anchor['totals']['iterations']} iterations (port {iters}), fallback lanes "
         f"{anchor['fallback_lanes']} ({anchor['reference']['platform']}, kkt_backend="
         f"{anchor['reference']['kkt_backend']}); statuses port {status.tolist()} "
         f"anchor {ref_status.tolist()}")
-    log(f"case118: objective rel. diff to the anchor over the {int(ref_ok.sum())} lanes it "
-        f"solved: max {rel[ref_ok].max():.3e} (tol {OBJ_RTOL:g}); over the lanes both solved: "
-        f"max {rel[ref_ok & ok].max():.3e}")
+    log(f"{tag}: objective rel. diff to the anchor over the {int(ref_ok.sum())} lanes it "
+        f"solved: max {np.max(rel[ref_ok], initial=0.0):.3e} (tol {OBJ_RTOL:g}); over the "
+        f"lanes both solved: max {np.max(rel[ref_ok & ok], initial=0.0):.3e}")
     if out.x.shape != (batch, nlp.n) or not torch.isfinite(out.x).all().item():
-        raise AssertionError("case118: x is not finite of shape (batch, n)")
+        raise AssertionError(f"{tag}: x is not finite of shape (batch, n)")
     if not ok[ref_ok].all():
         raise AssertionError(
-            f"case118: lanes the anchor solved and the port did not: {np.nonzero(ref_ok & ~ok)[0]}"
+            f"{tag}: lanes the anchor solved and the port did not: {np.nonzero(ref_ok & ~ok)[0]}"
         )
     if not (rel[ref_ok] <= OBJ_RTOL).all():
-        raise AssertionError(f"case118: lanes off the anchor: {np.nonzero(ref_ok & (rel > OBJ_RTOL))[0]}")
+        raise AssertionError(f"{tag}: lanes off the anchor: {np.nonzero(ref_ok & (rel > OBJ_RTOL))[0]}")
     if launches <= 0:
-        raise AssertionError("case118: the Cholesky kernel was never launched")
-    if trips[2] <= 0:
+        raise AssertionError(f"{tag}: the Cholesky kernel was never launched")
+    if not structured and trips[2] <= 0:
         raise AssertionError("case118: the float64 IPM phase 2 took no trip")
+
+
+def run_structured_single(torch, record):
+    """Phase 11: one-lane structured solves through ``optimize`` on the card
+    (float64 direct factors: the library's), held to the JAX package's
+    result on the same problem."""
+    import numpy as np
+
+    import sqpsolver_tpu_torch as tp
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu_torch.models.matpower import VENDORED_OPTIMA, load_case
+    from sqpsolver_tpu_torch.models.power import case9
+    from sqpsolver_tpu_torch.models.stochastic import couple_scenarios, pg_shared_mask
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+
+    anchor = _anchor("anchor_structured_single.json")
+    cp = anchor["coupled"]
+    base9 = case9()
+    base = acopf_polar(base9)
+    coupled = couple_scenarios(
+        base, load_scenarios(base9, cp["K"], seed=cp["seed"], spread=cp["spread"]),
+        pg_shared_mask(base9, base),
+    )
+    runs = [
+        ("case118", acopf_polar(load_case("case118"), scenario_batchable=False)),
+        ("coupled_case9", coupled),
+    ]
+    chol_tile.launches = 0
+    syncs0 = any_lane.syncs
+    t_phase = time.perf_counter()
+    failures = []
+    for name, nlp in runs:
+        want = anchor["solves"][name]
+        params = tp.Parameters(**anchor["params"][name])
+        t0 = time.perf_counter()
+        res = tp.optimize(nlp, params)  # the card by default
+        wall = time.perf_counter() - t0
+        rel = abs(res.obj_val - want["obj"]) / max(1.0, abs(want["obj"]))
+        ok = int(res.status) == want["status"] and rel <= OBJ_RTOL
+        ok = ok and res.x.shape == (nlp.n,) and bool(np.all(np.isfinite(res.x)))
+        extra = ""
+        if name == "case118":
+            pub = abs(res.obj_val - VENDORED_OPTIMA["case118"]) / VENDORED_OPTIMA["case118"]
+            ok = ok and pub <= 1e-4
+            extra = f"; rel. diff to the published optimum {pub:.2e} (tol 1e-4)"
+        log(f"structured_single: {name} (n={nlp.n}, m={nlp.m}): {res.status_name} obj "
+            f"{res.obj_val:.10g} in {res.iterations} iterations ({res.qp_iters_total} QP trips), "
+            f"wall {wall:.3f} s; JAX {tp.status_name(want['status'])} obj {want['obj']:.10g} in "
+            f"{want['iterations']} iterations ({want['qp_iters_total']} QP trips); rel. obj diff "
+            f"{rel:.2e}{extra}" + ("" if ok else "  <-- MISMATCH"))
+        if not ok:
+            failures.append(name)
+    launches = chol_tile.launches
+    record["launches"] += launches
+    record["launches_by_path"]["structured_single"] = launches
+    log(f"structured_single: {len(runs)} solves in {time.perf_counter() - t_phase:.3f} s, "
+        f"{any_lane.syncs - syncs0} host syncs, {launches} chol_tile launches (float64 "
+        f"direct factors go to the library)")
+    if failures:
+        raise AssertionError(f"structured_single: off the JAX anchor: {failures}")
 
 
 def profile_case118(torch, max_iter, out_path):
@@ -734,7 +832,11 @@ def main() -> int:
         run_single(torch, record)
     if "ls_case30" in paths:
         run_ls_case30(torch, record)
-    for batch, n in SLICE_SHAPES + PANEL_SHAPES:
+    if "structured118" in paths:
+        run_case118(torch, record, structured=True)
+    if "structured_single" in paths:
+        run_structured_single(torch, record)
+    for batch, n in SLICE_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,):
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "
             f"its bound, {t['ms'] / t['library_ms']:.3f} of the library call's time")

@@ -25,6 +25,17 @@ cannot drift apart.
   of the verify recipe (toy and hs071 at ``max_iter=200``, ACOPF case9 with
   its tolerances).  Each solve's status, objective, ``x``, iterations,
   ``prim_infeas`` and counters go to ``anchor_hs.json``.
+* ``--structured``: the block-structured (BBD) KKT path.  With a case and
+  batch (default case118 b16) the batched configuration above with
+  ``kkt_structured=True``; case118 goes through
+  ``make_chunked_batch_solver(sub_batch=8, rescue_fallback=True)`` as the
+  JAX bench drives it with ``SQP_BENCH_STRUCTURED=1``, case30 through
+  ``make_batch_solver``.  Written to ``anchor_structured_<case>_b<batch>.json``.
+* ``--structured --single``: one-lane structured solves through
+  ``optimize``: real case118 under the ``ladder`` shift with SOC, case9 under
+  the defaults and under ``mixed_ir`` + ``ladder``, and the coupled
+  two-stage case9 problem (K=3, shared dispatch) both structured and dense.
+  Written to ``anchor_structured_single.json``.
 
 Usage::
 
@@ -32,6 +43,8 @@ Usage::
         [--algorithm SQP-TR|SQP-LS] [--backend pallas|xla] [--max-iter N]
         [--cache-dir DIR] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --hs [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --structured [--single]
+        [--case C] [--batch B] [--out PATH]
 
 The reference's factorization backend defaults to the path's own,
 ``kkt_backend="pallas"``: on the CPU the JAX Cholesky kernel runs in
@@ -79,6 +92,11 @@ PARAMS = dict(
 CHUNKED = {
     "case30": None,
     "case118": dict(sub_batch=128, rescue_fallback=True),
+}
+#: ... and under ``SQP_BENCH_STRUCTURED=1`` (its slab is 8 wide there)
+CHUNKED_STRUCTURED = {
+    "case30": None,
+    "case118": dict(sub_batch=8, rescue_fallback=True),
 }
 
 
@@ -150,6 +168,74 @@ def _drive_problem(name: str):
     return _hs_problems()[name]
 
 
+#: the structured single-NLP solves: ``tests/test_structured.py``'s case118
+#: ladder test and case9 optimum test (also under ``mixed_ir`` + ``ladder``,
+#: with two and three refinement sweeps), and ``tests/test_stochastic.py``'s
+#: coupled structured-vs-dense test
+_ACOPF_TOL = dict(OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4)
+STRUCTURED_SINGLE = {
+    "case118": dict(_ACOPF_TOL, max_iter=40, use_soc=True, kkt_structured=True,
+                    hessian_shift="ladder"),
+    "case9": dict(_ACOPF_TOL, max_iter=60, kkt_structured=True),
+    "case9_mixed": dict(_ACOPF_TOL, max_iter=60, kkt_structured=True,
+                        kkt_precision="mixed_ir", hessian_shift="ladder"),
+    "case9_mixed_ir3": dict(_ACOPF_TOL, max_iter=60, kkt_structured=True,
+                            kkt_precision="mixed_ir", hessian_shift="ladder",
+                            kkt_ir_steps=3),
+    "coupled_case9": dict(_ACOPF_TOL, max_iter=100, use_soc=True,
+                          kkt_structured=True, hessian_shift="power"),
+    "coupled_case9_dense": dict(_ACOPF_TOL, max_iter=100, use_soc=True),
+}
+#: the coupled problem: K load scenarios of case9 sharing the non-slack pg
+COUPLED = dict(case="case9", K=3, seed=3, spread=0.03)
+
+
+def _structured_problem(name: str):
+    from sqpsolver_tpu.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu.models.matpower import load_case
+    from sqpsolver_tpu.models.power import case9
+    from sqpsolver_tpu.models.stochastic import couple_scenarios, pg_shared_mask
+
+    if name == "case118":
+        return acopf_polar(load_case("case118"), scenario_batchable=False)
+    if name.startswith("case9"):
+        return acopf_polar(case9(), scenario_batchable=False)
+    case = case9()
+    nlp = acopf_polar(case)
+    thetas = load_scenarios(case, COUPLED["K"], seed=COUPLED["seed"],
+                            spread=COUPLED["spread"])
+    return couple_scenarios(nlp, thetas, pg_shared_mask(case, nlp))
+
+
+def run_structured_single(out_path: str) -> None:
+    """``--structured --single``: the one-lane structured anchors."""
+    import jax
+
+    import sqpsolver_tpu as sqp
+
+    t0 = time.time()
+    record = dict(
+        reference=dict(
+            package="JAX reference package",
+            platform=jax.devices()[0].platform,
+            jax_version=jax.__version__,
+        ),
+        params=STRUCTURED_SINGLE,
+        coupled=COUPLED,
+        solves={},
+    )
+    for name, kw in STRUCTURED_SINGLE.items():
+        t1 = time.time()
+        rec = result_record(sqp.optimize(_structured_problem(name), sqp.Parameters(**kw)))
+        rec["seconds_with_compile"] = round(time.time() - t1, 1)
+        record["solves"][name] = rec
+        print(f"[{time.time() - t0:7.1f}s] {name}: {rec['status']} "
+              f"{rec['obj']:.10g} in {rec['iterations']}", file=sys.stderr, flush=True)
+    with open(out_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+
+
 def _worker_init() -> None:
     sys.path.insert(0, ROOT)
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -208,20 +294,39 @@ def run_hs(out_path: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", default="case30", choices=sorted(CHUNKED))
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--case", default=None, choices=sorted(CHUNKED),
+                    help="case30 (default), or case118 (default with --structured)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="32 for case30, 16 for case118 (default)")
     ap.add_argument("--algorithm", default="SQP-TR", choices=["SQP-TR", "SQP-LS"])
     ap.add_argument("--hs", action="store_true",
                     help="write the single-NLP anchors (anchor_hs.json) instead")
+    ap.add_argument("--structured", action="store_true",
+                    help="the block-structured (BBD) KKT path (reference on xla)")
+    ap.add_argument("--single", action="store_true",
+                    help="with --structured: the one-lane structured anchors")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
-    ap.add_argument("--max-iter", type=int, default=PARAMS["max_iter"])
+    ap.add_argument("--max-iter", type=int, default=None,
+                    help=f"default {PARAMS['max_iter']}; 100 for structured case118")
     ap.add_argument("--cache-dir", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     ls = "ls_" if args.algorithm == "SQP-LS" else ""
-    out_path = args.out or os.path.join(
-        DATA, "anchor_hs.json" if args.hs else f"anchor_{ls}{args.case}_b{args.batch}.json"
-    )
+    args.case = args.case or ("case118" if args.structured else "case30")
+    args.batch = args.batch or (16 if args.case == "case118" else 32)
+    if args.max_iter is None:
+        args.max_iter = 100 if (args.structured and args.case == "case118") else PARAMS["max_iter"]
+    if args.structured:
+        # the structured reference runs the library backend, as the dense
+        # case118 one does (see XLA_NOTE)
+        args.backend = "xla"
+        ls = "structured_"
+    name = f"anchor_{ls}{args.case}_b{args.batch}.json"
+    if args.hs:
+        name = "anchor_hs.json"
+    elif args.single:
+        name = "anchor_structured_single.json"
+    out_path = args.out or os.path.join(DATA, name)
 
     sys.path.insert(0, ROOT)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -231,7 +336,10 @@ def main() -> None:
     if args.hs:
         run_hs(out_path)
         return
-    if ls and CHUNKED[args.case]:
+    if args.single:
+        run_structured_single(out_path)
+        return
+    if args.algorithm == "SQP-LS" and CHUNKED[args.case]:
         raise SystemExit("--algorithm SQP-LS drives the monolithic case30 path only")
     if args.cache_dir:
         jax.config.update("jax_compilation_cache_dir", args.cache_dir)
@@ -255,9 +363,10 @@ def main() -> None:
         batch=args.batch,
         seed=7,
         spread=0.03,
-        params=dict(PARAMS, max_iter=args.max_iter, algorithm=args.algorithm),
+        params=dict(PARAMS, max_iter=args.max_iter, algorithm=args.algorithm,
+                    kkt_structured=args.structured),
     )
-    chunked = CHUNKED[args.case]
+    chunked = (CHUNKED_STRUCTURED if args.structured else CHUNKED)[args.case]
     if chunked:
         config["chunked"] = chunked
     case = load_case(config["case"])
@@ -289,8 +398,11 @@ def main() -> None:
         )
         extra["fallback_lanes"] = np.where(failed)[0].astype(int).tolist()
         log(f"first pass done; fallback lanes {extra['fallback_lanes']}")
-        out = make_chunked_batch_solver(nlp, params, log=log, **chunked)(data)
-    elif ls:
+        if failed.any():
+            out = make_chunked_batch_solver(nlp, params, log=log, **chunked)(data)
+        else:  # no lane falls back: the full solve is the first pass
+            out = first
+    elif args.algorithm == "SQP-LS":
         from sqpsolver_tpu.algorithms.sqp_ls import make_ls_solver
 
         out = jax.jit(jax.vmap(make_ls_solver(nlp, params, verbose=False)._raw))(data)

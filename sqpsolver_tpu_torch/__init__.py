@@ -21,6 +21,12 @@ Quick start (one NLP, on the GPU; ``device="cpu"`` runs it on the CPU)::
 The compute dtype is ``Parameters.dtype`` (float64 by default); there is no
 switch to turn float64 on, as the JAX package's ``enable_x64`` does.
 
+``Parameters(kkt_structured=True)`` on an NLP with a ``structure``
+(``acopf_polar`` sets one; ``structure.detect_structure`` finds one) runs
+the QPs through the block-structured KKT backend (``ops/kkt_bbd.py``) with
+coloring-compressed derivatives; ``models/stochastic.py`` couples load
+scenarios into one such NLP.
+
 Batched ACOPF on case30, on the GPU::
 
     import torch

@@ -19,8 +19,13 @@ phase 2.  The solve function carries its three stages as ``init_state``,
 checkpointed solve.  The iteration printer (``OutputFlag``) prints the JAX
 package's lines for a one-lane solve; per-iteration statistics
 (``StatisticsFlag``) fill fixed ``(B, max_iter + 1)`` tensors, one row per
-iteration of each lane.  Not ported yet (``NotImplementedError``): the
-structured KKT path.
+iteration of each lane.
+
+Structured mode (``kkt_structured=True``, an NLP with a ``structure``): the
+derivatives arrive coloring-compressed (``nJ`` Jacobian JVPs and ``nH``
+Hessian-vector products, forward over reverse, per lane) and are gathered
+into bordered-block-diagonal blocks (``ops.kkt_bbd.JacBlocks`` /
+``HessBlocks``), and the QPs run through ``BbdOperator`` in the same IPM.
 """
 
 from __future__ import annotations
@@ -31,13 +36,17 @@ import math
 import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.func import grad, jvp, vmap
 
 from .._lanes import amax0, any_lane, dot, map_lanes, mv, select
 from ..nlp import NLP, NLPData, initial_point
-from ..ops.qp_ipm import IpmOptions, solve_qp
+from ..ops.kkt_bbd import BbdOperator, BlockMaps, HessBlocks
+from ..ops.qp_ipm import IpmOptions, solve_qp, solve_qp_op
 from ..parameters import Parameters
 from ..status import Status
+from ..structure import build_block_structure
 from .common import (
     kt_residuals_from_parts,
     lanczos_lmin_bound,
@@ -73,8 +82,8 @@ class SqpState:
     f: torch.Tensor
     df: torch.Tensor
     E: torch.Tensor
-    J: torch.Tensor
-    H: torch.Tensor
+    J: torch.Tensor  # (B, m, n), or ops.kkt_bbd.JacBlocks in structured mode
+    H: torch.Tensor  # (B, n, n), or ops.kkt_bbd.HessBlocks
     prim_infeas: torch.Tensor
     dual_infeas: torch.Tensor
     p: torch.Tensor
@@ -100,7 +109,8 @@ class SqpState:
         return dataclasses.replace(self, **kw)
 
 
-def _select_state(mask, a: SqpState, b: SqpState) -> SqpState:
+def _select_tree(mask, a, b):
+    """Per-lane select over a tree of tensors (a state, a block tuple)."""
     return map_lanes(lambda x, y: select(mask, x, y), a, b)
 
 
@@ -125,6 +135,38 @@ class SqpResult(NamedTuple):
     stats: Optional[dict] = None
 
 
+def structured_derivatives(nlp: NLP, maps: BlockMaps, x, lam, theta, exact_hessian=True):
+    """Coloring-compressed derivatives in block form, per lane: the
+    Jacobian from ``nJ`` JVPs of ``g`` and the Lagrangian Hessian from
+    ``nH`` JVPs of its gradient (forward over reverse), one one-hot seed per
+    color, gathered by ``maps`` into :class:`JacBlocks` / :class:`HessBlocks`.
+    ``x`` (B, n), ``lam`` (B, m), ``theta`` a dict of (B, ...) tensors or
+    None."""
+    th_dim = 0 if (nlp.theta is not None and theta is not None) else None
+    seedsJ = maps.jvp_seeds("J", x.dtype)
+
+    def lane_jac(z, th):
+        return vmap(lambda s: jvp(lambda v: nlp.cons(v, th), (z,), (s,))[1])(seedsJ)
+
+    J = maps.jac_blocks(vmap(lane_jac, in_dims=(0, th_dim))(x, theta).transpose(-1, -2))
+    if not exact_hessian:  # SLP mode: LP subproblems
+        return J, maps.zero_hess(x.shape[0], x.dtype, x.device)
+    seedsH = maps.jvp_seeds("H", x.dtype)
+
+    def lane_hess(z, lm, th):
+        def lagrangian(v):
+            val = nlp.obj(v, th)
+            if nlp.g is not None:
+                val = val + torch.dot(lm, nlp.cons(v, th))
+            return val
+
+        glag = grad(lagrangian)
+        return vmap(lambda s: jvp(glag, (z,), (s,))[1])(seedsH)
+
+    Hc = vmap(lane_hess, in_dims=(0, 0, th_dim))(x, lam, theta)
+    return J, maps.hess_blocks(Hc.transpose(-1, -2))
+
+
 def _trust_region_box(x, x_l, x_u, tr):
     """TR box in step space with the degenerate-interval guard."""
     trc = _col(tr)
@@ -136,10 +178,6 @@ def _trust_region_box(x, x_l, x_u, tr):
     lb = torch.where(bad, torch.maximum(-trc, torch.clamp_max(v_lb, 0.0)), lb)
     ub = torch.where(bad, torch.minimum(trc, torch.clamp_min(v_ub, 0.0)), ub)
     return lb, ub
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to the torch package yet ({item})")
 
 
 @contextlib.contextmanager
@@ -168,8 +206,13 @@ def make_solver(
     a batch of several lanes prints nothing."""
     if params.algorithm != "SQP-TR":
         raise ValueError(f"make_solver builds SQP-TR; got algorithm={params.algorithm!r}")
-    if params.kkt_structured:
-        raise _not_ported("kkt_structured=True", "ROADMAP, later-PR list item 11")
+    structured = bool(params.kkt_structured)
+    if structured and nlp.structure is None:
+        raise ValueError(
+            "kkt_structured=True requires nlp.structure (see "
+            "sqpsolver_tpu_torch.structure.NLPStructure; models can also use "
+            "structure.detect_structure)"
+        )
     collect_stats = bool(params.StatisticsFlag)
     log_iters = bool(params.OutputFlag) if verbose is None else verbose
     solve_t0 = [0.0]
@@ -179,13 +222,20 @@ def make_solver(
     exact_hessian = params.hessian_type == "exact"
     use_soc = bool(params.use_soc)
     mixed = params.kkt_precision.startswith("mixed")
+    # float32-factorized KKT (mixed modes, and the structured backend's
+    # factors in any mode) bottoms out around 1e-6 on barrier-ill-conditioned
+    # systems; "mixed_polish" continues past that floor with float64 factors
     qp_tol_eff = max(params.qp_tol, 30.0 * float(torch.finfo(dtype).eps))
-    polish = params.kkt_precision == "mixed_polish" and dtype == torch.float64
-    if mixed and not polish:
+    polish = (
+        params.kkt_precision == "mixed_polish" and not structured and dtype == torch.float64
+    )
+    if (mixed or structured) and not polish:
         qp_tol_eff = max(qp_tol_eff, 2.0e-6)
     schur_cap = schur_cap_for(params, nlp)
     polish_iters = (
-        20 if polish else (8 if (mixed and dtype == torch.float64 and params.qp_rescue) else 0)
+        20
+        if polish
+        else (8 if ((mixed or structured) and dtype == torch.float64 and params.qp_rescue) else 0)
     )
     ipm_opts = IpmOptions(
         max_iter=params.qp_max_iter,
@@ -203,7 +253,8 @@ def make_solver(
         ),
         kkt_backend=params.kkt_backend,
         plane=params.kkt_precision == "mixed_plane",
-        invE_floor=3.0e-7 if schur_cap else 0.0,
+        # bounded condensation of the rows folded into K past the Schur set
+        invE_floor=3.0e-7 if (structured or schur_cap) else 0.0,
         polish_iters=polish_iters,
         schur_cap=schur_cap,
     )
@@ -214,10 +265,68 @@ def make_solver(
     max_iter = params.max_iter
     tr_max = 1.0e8
 
+    # ---------------------------------------------- structured (BBD) mode ---
+    if structured:
+        g_l_np = np.broadcast_to(np.asarray(nlp.g_l, dtype=np.float64), (m,))
+        g_u_np = np.broadcast_to(np.asarray(nlp.g_u, dtype=np.float64), (m,))
+        bs = build_block_structure(
+            n, m, nlp.structure, np.isfinite(g_l_np) & (g_l_np == g_u_np),
+            n_parts=(params.kkt_parts or None),
+        )
+        per_device = {}
+
+        def block_maps(ref: torch.Tensor) -> BlockMaps:
+            """The block maps on ``ref``'s device."""
+            if ref.device not in per_device:
+                per_device[ref.device] = BlockMaps(bs, ref.device)
+            return per_device[ref.device]
+
+        def jac_mv(J, p):
+            return block_maps(p).j_mv(J, p)
+
+        def jac_rmv(J, y):
+            return block_maps(y).j_rmv(J, y)
+
+        def jac_row_norms(J):
+            return block_maps(J.A_int).j_row_norms(J)
+
+        def hess_mv(H, v):
+            return block_maps(v).h_mv(H, v)
+
+        def qp_solve(Q, c, J, rl, ru, lb, ub, w, skip, init, tol_dyn):
+            op = BbdOperator(block_maps(c), J, Q, ipm_opts)
+            return solve_qp_op(
+                op, c, rl, ru, lb, ub, w, opts=ipm_opts, skip=skip, init=init,
+                tol_override=tol_dyn,
+            )
+
+    else:
+
+        def jac_mv(J, p):
+            return mv(J, p)
+
+        def jac_rmv(J, y):
+            return mv(J.transpose(-1, -2), y)
+
+        def jac_row_norms(J):
+            return torch.sqrt(torch.sum(J * J, dim=-1))
+
+        def hess_mv(H, v):
+            return mv(H, v)
+
+        def qp_solve(Q, c, J, rl, ru, lb, ub, w, skip, init, tol_dyn):
+            return solve_qp(
+                Q, c, J, rl, ru, lb, ub, w, opts=ipm_opts, skip=skip, init=init,
+                tol_override=tol_dyn,
+            )
+
     # ------------------------------------------------------------- evals ----
     def eval_all(x, lam, theta):
         f, df = nlp.obj_grad(x, theta)
         _, E = nlp.obj_cons(x, theta)
+        if structured:
+            J, H = structured_derivatives(nlp, block_maps(x), x, lam, theta, exact_hessian)
+            return f, df, E, J, H
         J = nlp.cons_jac(x, theta)
         if exact_hessian:
             H = nlp.lag_hess(x, lam, theta)
@@ -235,40 +344,50 @@ def make_solver(
 
     # ---------------------------------------------------------- QP solves ---
     def _gershgorin_data(H):
+        """(diag, off-diagonal |row| sums), dense or block form."""
+        if structured:
+            diag, rowabs = block_maps(H.H_ss).h_diag_rowabs(H)
+            return diag, rowabs - torch.abs(diag)
         diag = torch.diagonal(H, dim1=-2, dim2=-1)
         return diag, torch.sum(torch.abs(H), dim=-1) - torch.abs(diag)
+
+    def _add_diag(H, shift):
+        """H + shift I per lane, ``shift`` (B,)."""
+        if structured:
+            return block_maps(H.H_ss).h_add_diag(H, shift)
+        return H + shift[:, None, None] * torch.eye(n, dtype=dtype, device=H.device)
 
     def convexify(H):
         """Shift an indefinite Lagrangian Hessian toward PSD (per lane)."""
         if not exact_hessian:
             return H
-        eye = torch.eye(n, dtype=dtype, device=H.device)
         if params.hessian_shift == "ladder":
             # no global shift: only the f32-factorability floor; the KKT
             # factorization's delta ladder regularizes per IPM iteration
             diag_g, off_g = _gershgorin_data(H)
-            floor = 4.0e-7 * (1.0 + amax0(torch.abs(diag_g) + off_g))
-            return H + floor[:, None, None] * eye
+            return _add_diag(H, 4.0e-7 * (1.0 + amax0(torch.abs(diag_g) + off_g)))
         if params.hessian_shift == "gershgorin":
             diag, off = _gershgorin_data(H)
             lmin = torch.clamp_max(torch.amin(diag - off, dim=-1), 0.0)
-        elif params.hessian_shift == "power":
-            # Lanczos lower bound on lambda_min: matvecs only
+        elif params.hessian_shift == "power" or structured:
+            # Lanczos lower bound on lambda_min: matvecs only, so it serves
+            # the block form too (no dense H exists there; "eigh" comes here)
+            ref = H.H_ss if structured else H
             lmin = lanczos_lmin_bound(
-                lambda v: mv(H, v), H.shape[0], n, dtype, H.device,
+                lambda v: hess_mv(H, v), ref.shape[0], n, dtype, ref.device,
                 iters=(params.hessian_shift_iters or min(n, 64)),
             )
         else:  # "eigh": float32 smallest eigenvalue, padded by f32 eps * |H|
             lmin32 = torch.linalg.eigvalsh(H.to(torch.float32))[:, 0]
             pad = 4.0e-7 * amax0(torch.abs(H).flatten(-2))
             lmin = lmin32.to(dtype) - pad
-        if mixed:
+        if mixed or structured:  # float32 factors need a curvature floor
             diag_g, off_g = _gershgorin_data(H)
             floor = 4.0e-7 * (1.0 + amax0(torch.abs(diag_g) + off_g))
         else:
             floor = 1e-8 * (1.0 + torch.abs(lmin))
         shift = torch.clamp_min(-lmin, 0.0) + torch.where(lmin < floor, floor, 0.0)
-        return H + shift[:, None, None] * eye
+        return _add_diag(H, shift)
 
     def _adaptive_qp_tol(st: SqpState):
         if params.qp_tol_adaptive <= 0.0:
@@ -296,17 +415,17 @@ def make_solver(
                 zu=st.mult_up,
                 on=(st.iter > 1) & ~st.fr,
             )
-        Q = torch.where(st.fr[:, None, None], 0.0, H_qp)
+        if structured:
+            Q = HessBlocks(*(select(st.fr, torch.zeros_like(h), h) for h in H_qp))
+        else:
+            Q = torch.where(st.fr[:, None, None], 0.0, H_qp)
         return Q, c, rl, ru, lb, ub, w, init, _adaptive_qp_tol(st), freed
 
     def solve_subproblem(st: SqpState, d: NLPData, H_qp):
         """Normal/FR trust-region QP: inputs -> solve -> triage.  Done lanes
         skip (their IPM takes no trips)."""
         Q, c, rl, ru, lb, ub, w, init, tol_dyn, freed = subproblem_inputs(st, d, H_qp)
-        sol = solve_qp(
-            Q, c, st.J, rl, ru, lb, ub, w, opts=ipm_opts, skip=st.done,
-            init=init, tol_override=tol_dyn,
-        )
+        sol = qp_solve(Q, c, st.J, rl, ru, lb, ub, w, st.done, init, tol_dyn)
         return triage_subproblem(st, d, sol, freed)
 
     def triage_subproblem(st: SqpState, d: NLPData, sol, freed):
@@ -333,24 +452,23 @@ def make_solver(
         by the curvature residual at the trial point, E_soc = g(x+p) - J p;
         its solution is the whole corrected step (the JAX package's fix of
         the reference's double-added base step).  Lanes not trying skip."""
-        E_soc = E_trial - mv(st.J, st.p)
+        E_soc = E_trial - jac_mv(st.J, st.p)
         lb, ub = _trust_region_box(st.x, d.x_l, d.x_u, st.tr)
         init = None
         if params.qp_warm_start:
             y_w, zl_w, zu_w = duals
             init = dict(p=st.p, y=y_w, zl=zl_w, zu=zu_w, on=try_soc)
-        sol = solve_qp(
+        sol = qp_solve(
             H_qp, st.df, st.J, d.g_l - E_soc, d.g_u - E_soc, lb, ub,
-            torch.full_like(st.E, w_big), opts=ipm_opts, skip=~try_soc,
-            init=init, tol_override=_adaptive_qp_tol(st),
+            torch.full_like(st.E, w_big), ~try_soc, init, _adaptive_qp_tol(st),
         )
         return sol.p, sol.iters
 
     def qmodel(st: SqpState, p, d: NLPData, with_step):
         """q(p) = df'p + 1/2 p'Hp + mu * ||linearized viol||_1."""
         if with_step:
-            qval = dot(st.df, p) + 0.5 * dot(p, mv(st.H, p))
-            E_lin = st.E + mv(st.J, p)
+            qval = dot(st.df, p) + 0.5 * dot(p, hess_mv(st.H, p))
+            E_lin = st.E + jac_mv(st.J, p)
             x_t = st.x + p
         else:
             qval = torch.zeros_like(st.mu)
@@ -419,13 +537,12 @@ def make_solver(
         f, df, E, J, H = eval_all(st.x, st.lam, d.theta)
         prim = viol1(E, st.x, d)
         dual = kt_residuals_from_parts(
-            df, st.lam, st.mult_up, st.mult_lo,
-            mv(J.transpose(-1, -2), st.lam), torch.sqrt(torch.sum(J * J, dim=-1)),
+            df, st.lam, st.mult_up, st.mult_lo, jac_rmv(J, st.lam), jac_row_norms(J),
         )
         acc = st.step_accepted
         return st.replace(
             f=select(acc, f, st.f), df=select(acc, df, st.df), E=select(acc, E, st.E),
-            J=select(acc, J, st.J), H=select(acc, H, st.H),
+            J=_select_tree(acc, J, st.J), H=_select_tree(acc, H, st.H),
             prim_infeas=select(acc, prim, st.prim_infeas),
             dual_infeas=select(acc, dual, st.dual_infeas),
         )
@@ -613,14 +730,21 @@ def make_solver(
         x0 = initial_point(d)
         B, dev = x0.shape[0], x0.device
         lam = x0.new_zeros((B, m)) if d.lam0 is None else d.lam0.to(dtype)
-        project = n_lin > 0 and params.init_projection != "off"
+        # structured mode skips the projection (its QP would need the dense
+        # Jacobian): supply a linear-feasible x0 there (ACOPF starts are)
+        project = n_lin > 0 and params.init_projection != "off" and not structured
         if project:
             f0, df0, E0, J0, H0 = eval_all(x0, lam, theta)
         else:
             f0, E0 = nlp.obj_cons(x0, theta)
             df0 = x0.new_zeros((B, n))
-            J0 = x0.new_zeros((B, m, n))
-            H0 = x0.new_zeros((B, n, n))
+            if structured:
+                maps = block_maps(x0)
+                J0 = maps.zero_jac(B, dtype, dev)
+                H0 = maps.zero_hess(B, dtype, dev)
+            else:
+                J0 = x0.new_zeros((B, m, n))
+                H0 = x0.new_zeros((B, n, n))
         mlo = x0.new_zeros((B, n))
         mup = x0.new_zeros((B, n))
         if project:
@@ -680,7 +804,7 @@ def make_solver(
             active = ~st.done & (st.iter <= limit)
             if not any_lane(active):
                 return st
-            st = _select_state(active, body(st, d), st)
+            st = _select_tree(active, body(st, d), st)
 
     def finalize(st: SqpState, d: NLPData) -> SqpResult:
         limit_ret = torch.where(

@@ -1,7 +1,8 @@
 """AC Optimal Power Flow in polar form (ACP) as a torch NLP.
 
-Port of the JAX package's ``models/acopf.py`` ``acopf_polar`` (dense path)
-and ``load_scenarios``: minimize polynomial generation cost subject to the
+Port of the JAX package's ``models/acopf.py`` ``acopf_polar`` with its
+analytic sparsity (``acopf_polar_structure``, for the block-structured KKT
+path) and ``load_scenarios``: minimize polynomial generation cost subject to the
 reference-bus angle, bus power balance and branch thermal limits.  Loads
 (pd, qd) enter through the NLP ``theta`` dict, so one solver runs a batch of
 load scenarios.
@@ -155,7 +156,53 @@ def acopf_polar(case: PowerCase, scenario_batchable: bool = True) -> NLP:
         num_linear=1,
         theta=theta,
         name=f"acopf_acp_{case.name}",
+        structure=acopf_polar_structure(case),
     )
+
+
+def acopf_polar_structure(case: PowerCase):
+    """Exact structural sparsity of the polar formulation (row-wise variable
+    supports), derived from the network topology.  Variable layout
+    ``[va (nb), vm (nb), pg (ng), qg (ng)]``; row layout ``[ref angle,
+    P balance (nb), Q balance (nb), s_from (nl), s_to (nl)]``."""
+    from ..structure import NLPStructure
+
+    nb, ng, nl = case.nb, case.ng, case.nl
+
+    def va(i):
+        return int(i)
+
+    def vm(i):
+        return int(nb + i)
+
+    def pg(k):
+        return int(2 * nb + k)
+
+    def qg(k):
+        return int(2 * nb + ng + k)
+
+    nbr: list[set] = [set() for _ in range(nb)]
+    for br in range(nl):
+        f, t = int(case.br_f[br]), int(case.br_t[br])
+        nbr[f].add(t)
+        nbr[t].add(f)
+    gens_at: list[list] = [[] for _ in range(nb)]
+    for k, b in enumerate(case.gen_bus):
+        gens_at[int(b)].append(k)
+
+    rows = [np.array([va(case.ref_bus)])]
+    for gen_var in (pg, qg):  # P balance, then Q balance
+        for i in range(nb):
+            cols = [va(i), vm(i)]
+            for j in sorted(nbr[i]):
+                cols += [va(j), vm(j)]
+            cols += [gen_var(k) for k in gens_at[i]]
+            rows.append(np.array(sorted(cols)))
+    for _ in range(2):  # s_from, then s_to
+        for br in range(nl):
+            f, t = int(case.br_f[br]), int(case.br_t[br])
+            rows.append(np.array(sorted({va(f), vm(f), va(t), vm(t)})))
+    return NLPStructure(row_cols=tuple(rows))
 
 
 def load_scenarios(case: PowerCase, batch: int, seed: int = 0, spread: float = 0.1):

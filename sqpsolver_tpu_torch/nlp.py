@@ -54,6 +54,10 @@ class NLP:
     #: example scenario-parameter dict (numpy arrays); when set, ``f`` and
     #: ``g`` take it as a second argument, one instance's slice per lane
     theta: Optional[dict] = None
+    #: optional static sparsity pattern (``structure.NLPStructure``) that
+    #: enables the block-structured (BBD) KKT path, ``kkt_structured=True``;
+    #: None = dense path only
+    structure: Optional[object] = None
 
     def __post_init__(self):
         if self.n == 0:

@@ -1,5 +1,8 @@
-"""Elastic primal-dual interior-point QP solver, dense path (torch port of the
-JAX package's ``ops/qp_ipm.py``), batch-first.
+"""Elastic primal-dual interior-point QP solver (torch port of the JAX
+package's ``ops/qp_ipm.py``), batch-first, with two linear-algebra backends:
+the dense :class:`DenseOp` (:func:`solve_qp`) and any operator with its
+interface, such as the block-structured ``ops.kkt_bbd.BbdOperator``
+(:func:`solve_qp_op`).
 
 Canonical elastic form, one instance per lane:
 
@@ -115,6 +118,10 @@ class DenseOp:
 
     def a_rmv(self, y):
         return mv(self.A.transpose(-1, -2), y)
+
+    def stiff_allowed(self):
+        """Rows that may go through the Schur complement: all of them."""
+        return torch.ones((self.A.shape[-2],), dtype=torch.bool, device=self.A.device)
 
     def rescue_op(self, keep_cap: bool = False) -> "DenseOp":
         """Full-precision twin for the phase-2 loop: direct factors in the
@@ -241,7 +248,8 @@ def solve_qp(
     init: Optional[dict] = None,
     tol_override: Optional[torch.Tensor] = None,
 ) -> QpSolution:
-    """Solve a batch of canonical elastic QPs (module docstring).
+    """Solve a batch of canonical elastic QPs (module docstring) with dense
+    linear algebra.
 
     Shapes: ``Q`` (B, n, n), ``A`` (B, m, n), ``c``/``lb``/``ub`` (B, n),
     ``rl``/``ru``/``w`` (B, m).  Bounds may be +-inf; equality rows are
@@ -251,8 +259,25 @@ def solve_qp(
     ``tol_override`` (B,): per-lane relaxation of the tolerance.
     """
     dtype = torch.promote_types(Q.dtype, c.dtype)
-    Q = Q.to(dtype)
-    A = A.to(dtype)
+    op = DenseOp(Q.to(dtype), A.to(dtype), opts, dtype)
+    return solve_qp_op(
+        op, c, rl, ru, lb, ub, w, opts=opts, skip=skip, init=init, tol_override=tol_override
+    )
+
+
+def solve_qp_op(
+    op, c, rl, ru, lb, ub, w,
+    opts: IpmOptions = IpmOptions(),
+    skip: Optional[torch.Tensor] = None,
+    init: Optional[dict] = None,
+    tol_override: Optional[torch.Tensor] = None,
+) -> QpSolution:
+    """:func:`solve_qp` with the linear algebra of ``op``: a :class:`DenseOp`
+    or the block-structured ``ops.kkt_bbd.BbdOperator``, which supply the
+    matvecs ``q_mv``/``a_mv``/``a_rmv``, the stiff-row rules
+    ``stiff_allowed``/``cap_stiff``, the factor-and-solve ``prepare`` and the
+    float64 twin ``rescue_op``.  One IPM body, both phases, either backend."""
+    dtype = torch.promote_types(op.dtype, c.dtype)
     c, rl, ru, lb, ub, w = (a.to(dtype) for a in (c, rl, ru, lb, ub, w))
     B, n = c.shape
     m = rl.shape[-1]
@@ -278,7 +303,7 @@ def solve_qp(
     hub = torch.isfinite(ub_eff)
     ridge_vec = torch.where(fixed, opts.fixed_var_ridge * one, zero)
     cmod = c - torch.where(fixed, opts.fixed_var_ridge * fixval, zero)
-    op = DenseOp(Q, A, opts, dtype)
+    allowed = op.stiff_allowed()
     ones_m = torch.ones((B, m), dtype=torch.bool, device=dev)
 
     def qmod_mv(x):
@@ -462,7 +487,9 @@ def solve_qp(
         ev = v / zeta_v
         E = eu + ev + _masked_div(torch.ones_like(Ds), Ds, rowbounded)
         soft = (E > 1.0) | freerow
-        stiff = lop.cap_stiff(~soft, E, cap)
+        # rows outside the operator's allowed set fold into K whatever their
+        # E; the operator may shrink the stiff set to its capacity
+        stiff = lop.cap_stiff(~soft & allowed, E, cap)
         elim = ~stiff & ~freerow
         invE_soft = torch.where(elim, 1.0 / torch.clamp_min(E, opts.invE_floor), zero)
         E_stiff = torch.where(stiff, E, one)

@@ -33,7 +33,13 @@ JAX it runs on its own, without the suite's JAX conftest::
   iterations, objectives within 1e-10 relative;
 * the line search on the card: ACOPF case5 under SQP-LS, 4 load scenarios,
   against the same solve on the CPU (statuses equal and solved, objectives
-  within 1e-7 relative, the kernel launched).
+  within 1e-7 relative, the kernel launched);
+* the structured (BBD) path on the card is bit-reproducible: structured
+  case9's coloring-compressed constraints, Jacobian and Hessian blocks
+  evaluated eleven times, and two five-iteration solves (float32 factors,
+  the kernel launched), agree bit for bit;
+* the structured entry points run on the card by default: ``optimize`` of
+  structured case9 and the batched data of the coupled two-stage problem.
 """
 
 import numpy as np
@@ -216,3 +222,59 @@ def test_line_search_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(gpu["status"], cpu["status"])
     assert np.isin(gpu["status"], [0, 1, 6]).all()
     np.testing.assert_allclose(gpu["obj_val"], cpu["obj_val"], rtol=1e-7)
+
+
+@pytest.mark.gpu
+def test_structured_case9_is_bit_reproducible_on_the_card(cuda):
+    from sqpsolver_tpu_torch.algorithms.sqp_tr import structured_derivatives
+    from sqpsolver_tpu_torch.models.power import case9
+    from sqpsolver_tpu_torch.ops.kkt_bbd import BlockMaps
+    from sqpsolver_tpu_torch.structure import build_block_structure
+
+    case = case9()
+    nlp = acopf_polar(case)
+    theta = load_scenarios(case, 4, seed=7, spread=0.03)
+    data = tp.batch_data(nlp, 4, theta=theta, device=cuda)
+    eq = np.isfinite(nlp.g_l) & (nlp.g_l == nlp.g_u)
+    maps = BlockMaps(build_block_structure(nlp.n, nlp.m, nlp.structure, eq), cuda)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = data.x0 + 0.05 * torch.randn(data.x0.shape, generator=gen, device=cuda, dtype=data.x0.dtype)
+    lam = torch.randn((4, nlp.m), generator=gen, device=cuda, dtype=x.dtype)
+
+    def evaluate():
+        J, H = structured_derivatives(nlp, maps, x, lam, data.theta)
+        return (nlp.obj_cons(x, data.theta)[1],) + tuple(J) + tuple(H)
+
+    first = evaluate()
+    for _ in range(10):
+        for a, b in zip(first, evaluate()):
+            assert torch.equal(a, b)
+
+    params = tp.Parameters(**dict(SLICE, max_iter=5, kkt_structured=True))
+    solver = tp.make_batch_solver(nlp, params)
+    before = chol_tile.launches
+    one = solver(data)
+    assert chol_tile.launches > before
+    two = solver(data)
+    for key in ("x", "obj_val", "qp_iters_total", "status"):
+        assert torch.equal(getattr(one, key), getattr(two, key)), key
+
+
+@pytest.mark.gpu
+def test_structured_entry_points_default_to_the_card(cuda):
+    from sqpsolver_tpu_torch.models.power import case9
+    from sqpsolver_tpu_torch.models.stochastic import couple_scenarios, pg_shared_mask
+
+    case = case9()
+    nlp = acopf_polar(case)
+    coupled = couple_scenarios(nlp, load_scenarios(case, 3, seed=3, spread=0.03),
+                               pg_shared_mask(case, nlp))
+    assert tp.batch_data(coupled, 2).theta["pd"].device.type == "cuda"
+    params = tp.Parameters(max_iter=60, OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4,
+                           kkt_structured=True)
+    single = acopf_polar(case, scenario_batchable=False)
+    raw = tp.make_solver(single, params)(tp.batch_data(single, 1))
+    assert raw.x.device.type == "cuda"
+    res = tp.optimize(single, params)  # the card by default
+    assert res.success
+    assert abs(res.obj_val - 5296.69) / 5296.69 < 1e-4

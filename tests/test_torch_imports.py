@@ -26,7 +26,9 @@ def _modules():
 def test_the_port_imports_no_jax():
     modules = _modules()
     assert {"sqpsolver_tpu_torch.algorithms.sqp_ls", "sqpsolver_tpu_torch.models.hs",
-            "sqpsolver_tpu_torch.utils.checkpoint"} <= set(modules)
+            "sqpsolver_tpu_torch.utils.checkpoint", "sqpsolver_tpu_torch.structure",
+            "sqpsolver_tpu_torch.ops.kkt_bbd",
+            "sqpsolver_tpu_torch.models.stochastic"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
