@@ -7,6 +7,7 @@ PyTorch built for CUDA::
     python3 chip_smoke.py --profile out/profile_slice.json  # + a profiled case30 run
     python3 chip_smoke.py --profile118 out/profile_case118.json  # + a profiled case118 run, cut to 8 iterations
     python3 chip_smoke.py --paths case118   # a partial run: no closing "ok" line
+    python3 chip_smoke.py --paths rect118,forms_single   # the other ACOPF formulations
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -15,23 +16,26 @@ Phases (any failure raises and the exit code is non-zero):
 3. hold the Cholesky kernel against its plain PyTorch version on the card
    at the case30 path's shapes (32x72x72 K, 32x96x96 capped Schur S), at
    256x128x128, at the case118 path's diagonal blocks (16x128x128, and the
-   ragged last panels 16x88x88 of K and 16x80x80 of S), at the structured
-   case118 path's panels of its Schur complement (8x128x128) and at small
+   ragged last panels 16x88x88 of K and 16x80x80 of S), at the ragged last
+   panel 16x104x104 of the rectangular case118 path's capped S, at the
+   structured case118 path's panels of its Schur complement (8x128x128) and
+   at small
    and odd sizes (3x1x1, 5x7x7, 32x33x33, 32x127x127) that reach every width
    the kernel is compiled for and its ragged edge: max|dL| / max|L| <= 1e-5
    and an exact-zero upper triangle; an indefinite tile must give a
-   non-finite factor on that tile only.  At the first seven shapes the
+   non-finite factor on that tile only.  At the first eight shapes the
    kernel, the plain version and one library call
    that computes the same function (``torch.linalg.cholesky_ex``, a yardstick
    that the package's kernel path never calls) are timed with CUDA events, and
    the least time the card could take (``bound_ms``) is computed from the
    shape;
 4. hold the 128-panel ``cholesky_blocked`` and ``tri_inv_blocked`` at
-   16x344x344 (case118's K), 16x336x336 (its capped S) and 8x896x896 (the
-   stiff Schur complement of structured case118 under ``sub_batch=8``)
+   16x344x344 (case118's K), 16x336x336 (its capped S), 16x360x360 (the
+   capped S of rectangular case118) and 8x896x896 (the stiff Schur
+   complement of structured case118 under ``sub_batch=8``)
    against float64 ``torch.linalg.cholesky`` / the float64 inverse of the
    same matrices (max|dL| / max|L| <= 1e-5; max|L Linv - I| <= 1e-4), with
-   the kernel's launch count rising by one per 128-panel (3, 3 and 7) per
+   the kernel's launch count rising by one per 128-panel (3, 3, 3 and 7) per
    factorization and an indefinite matrix
    whose bad pivot lies in the third panel giving a non-finite factor on
    that lane only; time both against one library call each
@@ -91,10 +95,26 @@ Phases (any failure raises and the exit code is non-zero):
     the published optimum at 1e-4, and the two-stage coupled case9 problem
     (three scenarios sharing the non-slack dispatch, ``power`` shift); each
     must end in the JAX package's status within 1e-6 relative of its
-    objective (``anchor_structured_single.json``).
+    objective (``anchor_structured_single.json``);
+12. the rectangular case118 path: ``acopf_rect`` on case118 (n=344, m=727,
+    Schur cap 360 = 128+128+104) with the case118 path's 16 load scenarios
+    and parameters through ``make_chunked_batch_solver(sub_batch=128,
+    rescue_fallback=True)``, held and reported as phase 6 is
+    (``anchor_rect_case118_b16.json``), a lane's objective against the
+    nearer of the anchor's two runs of the JAX package (multi-threaded, and
+    on one core: ``scripts/torch_anchor.py --one-thread``; that rounding
+    alone moves the reference's lane 0 by 4.7e-6);
+13. one-lane float64 solves of the other formulations through ``optimize``
+    with the reference example's ACOPF parameters: ``acopf_rect`` on case9
+    and case118, ``acopf_ivr`` and ``acopf_wr`` on case9 and case30, and
+    ``acopf_polar`` on case9 with 12-segment piecewise-linear costs and with
+    one HVDC line (both cases written as MATPOWER text to a temporary
+    directory and parsed back); each must end in the JAX package's status
+    and, where JAX succeeded, within 1e-6 relative of its objective
+    (``anchor_forms_single.json``); iterations are printed beside JAX's.
 
 Standard output ends with these lines, in this order: the kernel's share of
-its bound and its ratio to the library call at the paths' six shapes; the
+its bound and its ratio to the library call at the paths' seven shapes; the
 kernels' JSON record ``{"kernels": [...]}``; the card's name and power limit
 as ``nvidia-smi`` gives them; and last ``{"ok": true, "device": {"platform":
 "gpu", "kind": ..., "count": ...}}``.  This script imports neither JAX nor
@@ -115,14 +135,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1.0e-5  # max|dL| / max|L|, float32 factors of n <= 128
 OBJ_RTOL = 1.0e-6  # per-lane objective against the JAX anchor
 INVERSE_TOL = 1.0e-4  # max|L Linv - I| of the blocked inverse, float32
-BLOCKED = ((16, 344), (16, 336), (8, 896))  # case118 b16's dense K and capped S; its structured S (sub_batch 8)
+BLOCKED = ((16, 344), (16, 336), (16, 360), (8, 896))  # case118 b16's dense K and capped S; rect's capped S; structured S (sub_batch 8)
 SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
-PANEL_SHAPES = ((16, 128), (16, 88), (16, 80))  # case118 b16: K = 128+128+88, S = 128+128+80
+PANEL_SHAPES = ((16, 128), (16, 88), (16, 80), (16, 104))  # case118 b16: K = 128+128+88, S = 128+128+80; rect S = 128+128+104
 STRUCTURED_PANEL = (8, 128)  # structured case118, sub_batch 8: S = 7 x 128
 TIMED = SLICE_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,)
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
-PATHS = ("case30", "case118", "single", "ls_case30", "structured118", "structured_single")
-# phases 5, 6, 8, 9, 10, 11
+PATHS = ("case30", "case118", "single", "ls_case30", "structured118", "structured_single",
+         "rect118", "forms_single")
+# phases 5, 6, 8, 9, 10, 11, 12, 13
+#: the chunked case118 paths and their anchors
+ANCHOR_118 = {
+    "case118": "anchor_case118_b16.json",
+    "structured118": "anchor_structured_case118_b16.json",
+    "rect118": "anchor_rect_case118_b16.json",
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67.0e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -527,19 +554,20 @@ def run_ls_case30(torch, record):
         raise AssertionError("ls_case30: the Cholesky kernel was never launched")
 
 
-def case118_solver(torch, max_iter=None, anchor_file="anchor_case118_b16.json", tag="case118"):
-    """A chunked case118 path's configuration from its anchor file (the
-    dense one by default), through the port's public entry points;
-    ``max_iter`` cuts the depth (the profile)."""
+def case118_solver(torch, tag="case118", max_iter=None):
+    """A chunked case118 path's configuration (``ANCHOR_118[tag]``: its
+    formulation, data, parameters and chunking) from its anchor file,
+    through the port's public entry points; ``max_iter`` cuts the depth (the
+    profile)."""
     from sqpsolver_tpu_torch import Parameters, batch_data, make_chunked_batch_solver
-    from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu_torch.models import acopf
     from sqpsolver_tpu_torch.models.matpower import load_case
 
-    anchor = _anchor(anchor_file)
+    anchor = _anchor(ANCHOR_118[tag])
     case = load_case(anchor["case"])
-    nlp = acopf_polar(case)
+    nlp = getattr(acopf, f"acopf_{anchor.get('form', 'polar')}")(case)
     batch = anchor["batch"]
-    theta = load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
+    theta = acopf.load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
     kw = dict(anchor["params"], **({} if max_iter is None else {"max_iter": max_iter}))
     log(f"{tag}: {case.name} n={nlp.n} m={nlp.m} batch={batch} chunked={anchor['chunked']} "
         f"params={kw}")
@@ -556,21 +584,18 @@ def case118_solver(torch, max_iter=None, anchor_file="anchor_case118_b16.json", 
     return anchor, nlp, solver, solve
 
 
-def run_case118(torch, record, structured=False):
-    """Phase 6 (dense) or 10 (``structured``): a case118 path through the
-    chunked solver with its rescue fallback."""
+def run_case118(torch, record, tag="case118"):
+    """Phase 6 (``case118``, dense), 10 (``structured118``) or 12
+    (``rect118``, dense, rectangular): a case118 path through the chunked
+    solver with its rescue fallback."""
     import numpy as np
 
     from sqpsolver_tpu_torch._lanes import any_lane
     from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, cholesky_blocked
     from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
 
-    tag = "structured118" if structured else "case118"
-    anchor, nlp, solver, solve = case118_solver(
-        torch,
-        anchor_file=f"anchor_{'structured_' if structured else ''}case118_b16.json",
-        tag=tag,
-    )
+    structured = tag == "structured118"
+    anchor, nlp, solver, solve = case118_solver(torch, tag)
     batch = anchor["batch"]
     chol_tile.launches = 0
     calls0 = cholesky_blocked.calls
@@ -595,12 +620,17 @@ def run_case118(torch, record, structured=False):
     ref = np.asarray(anchor["lanes"]["obj"])
     ref_ok = np.isin(ref_status, [0, 1, 6])
     ok = np.isin(status, [0, 1, 6])
-    rel = np.abs(obj - ref) / np.abs(ref)
+    rel = rel_anchor = np.abs(obj - ref) / np.abs(ref)
+    if "one_thread" in anchor:
+        # the reference run again on one core: where rounding decides a
+        # lane's stopping point, the JAX package has two answers
+        ref1 = np.asarray(anchor["one_thread"]["obj"])
+        rel = np.minimum(rel_anchor, np.abs(obj - ref1) / np.abs(ref1))
     iters = int(out.iterations.sum().item())
     lane_trips = int(out.qp_iters_total.sum().item())
     n_ok = int(ok.sum())
     what = ("S spans seven 128-panels; the interiors and the separator go to the library"
-            if structured else "K and S both span three 128-panels")
+            if structured else f"K ({nlp.n}) and S both span three 128-panels")
     log(f"{tag}: wall {wall:.4f} s, {iters} SQP iterations ({iters / wall:.2f} SQP-iter/s), "
         f"{n_ok}/{batch} solved ({n_ok / wall:.4f} solves/s), {lane_trips} lane-IPM-trips "
         f"(a rescued QP counts its float64 trips only), {rounds} rounds "
@@ -617,8 +647,17 @@ def run_case118(torch, record, structured=False):
         f"{anchor['reference']['kkt_backend']}); statuses port {status.tolist()} "
         f"anchor {ref_status.tolist()}")
     log(f"{tag}: objective rel. diff to the anchor over the {int(ref_ok.sum())} lanes it "
-        f"solved: max {np.max(rel[ref_ok], initial=0.0):.3e} (tol {OBJ_RTOL:g}); over the "
-        f"lanes both solved: max {np.max(rel[ref_ok & ok], initial=0.0):.3e}")
+        f"solved: max {np.max(rel_anchor[ref_ok], initial=0.0):.3e}; over the "
+        f"lanes both solved: max {np.max(rel_anchor[ref_ok & ok], initial=0.0):.3e}; per lane "
+        f"{np.array2string(rel_anchor, precision=2)}, port iterations "
+        f"{out.iterations.cpu().numpy().tolist()}, anchor {anchor['lanes']['iterations']}")
+    if "one_thread" in anchor:
+        log(f"{tag}: the reference on one core (anchor's one_thread): iterations "
+            f"{anchor['one_thread']['iterations']}; objective rel. diff to the nearer of "
+            f"the two reference runs: max {np.max(rel[ref_ok], initial=0.0):.3e}; per lane "
+            f"{np.array2string(rel, precision=2)}")
+    log(f"{tag}: gate: every lane the anchor solved solved, within {OBJ_RTOL:g} of a "
+        f"reference run: max {np.max(rel[ref_ok], initial=0.0):.3e}")
     if out.x.shape != (batch, nlp.n) or not torch.isfinite(out.x).all().item():
         raise AssertionError(f"{tag}: x is not finite of shape (batch, n)")
     if not ok[ref_ok].all():
@@ -630,7 +669,7 @@ def run_case118(torch, record, structured=False):
     if launches <= 0:
         raise AssertionError(f"{tag}: the Cholesky kernel was never launched")
     if not structured and trips[2] <= 0:
-        raise AssertionError("case118: the float64 IPM phase 2 took no trip")
+        raise AssertionError(f"{tag}: the float64 IPM phase 2 took no trip")
 
 
 def run_structured_single(torch, record):
@@ -692,6 +731,60 @@ def run_structured_single(torch, record):
         f"direct factors go to the library)")
     if failures:
         raise AssertionError(f"structured_single: off the JAX anchor: {failures}")
+
+
+def run_forms_single(torch, record):
+    """Phase 13: one-lane solves of the other ACOPF formulations and of the
+    polar extensions through ``optimize`` on the card (float64 direct
+    factors: the library's), held to the JAX package's result on the same
+    problem."""
+    import tempfile
+
+    import numpy as np
+
+    import sqpsolver_tpu_torch as tp
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.models import acopf, matpower
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+
+    anchor = _anchor("anchor_forms_single.json")
+    params = tp.Parameters(**anchor["params"])
+    chol_tile.launches = 0
+    syncs0 = any_lane.syncs
+    t_phase = time.perf_counter()
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (form, case_name, segs, dc) in anchor["forms"].items():
+            if segs or dc:  # a PWL or dcline variant of case9, as MATPOWER text
+                case = matpower.case9_variant(tmp, segs, dc)
+            else:
+                case = matpower.load_case(case_name)
+            nlp = getattr(acopf, f"acopf_{form}")(case, scenario_batchable=False)
+            want = anchor["solves"][name]
+            t0 = time.perf_counter()
+            res = tp.optimize(nlp, params)  # the card by default
+            wall = time.perf_counter() - t0
+            rel = abs(res.obj_val - want["obj"]) / max(1.0, abs(want["obj"]))
+            ok = int(res.status) == want["status"]
+            if tp.is_success(want["status"]):
+                ok = ok and rel <= OBJ_RTOL
+            ok = ok and res.x.shape == (nlp.n,) and bool(np.all(np.isfinite(res.x)))
+            log(f"forms_single: {name} ({nlp.name}, n={nlp.n}, m={nlp.m}, num_linear="
+                f"{nlp.num_linear}): {res.status_name} obj {res.obj_val:.10g} in "
+                f"{res.iterations} iterations ({res.qp_iters_total} QP trips), wall {wall:.3f} s; "
+                f"JAX {tp.status_name(want['status'])} obj {want['obj']:.10g} in "
+                f"{want['iterations']} iterations ({want['qp_iters_total']} QP trips); rel. obj "
+                f"diff {rel:.2e}" + ("" if ok else "  <-- MISMATCH"))
+            if not ok:
+                failures.append(name)
+    launches = chol_tile.launches
+    record["launches"] += launches
+    record["launches_by_path"]["forms_single"] = launches
+    log(f"forms_single: {len(anchor['forms'])} solves in {time.perf_counter() - t_phase:.3f} s, "
+        f"{any_lane.syncs - syncs0} host syncs, {launches} chol_tile launches (float64 "
+        f"direct factors go to the library)")
+    if failures:
+        raise AssertionError(f"forms_single: off the JAX anchor: {failures}")
 
 
 def profile_case118(torch, max_iter, out_path):
@@ -833,9 +926,13 @@ def main() -> int:
     if "ls_case30" in paths:
         run_ls_case30(torch, record)
     if "structured118" in paths:
-        run_case118(torch, record, structured=True)
+        run_case118(torch, record, "structured118")
     if "structured_single" in paths:
         run_structured_single(torch, record)
+    if "rect118" in paths:
+        run_case118(torch, record, "rect118")
+    if "forms_single" in paths:
+        run_forms_single(torch, record)
     for batch, n in SLICE_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,):
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "

@@ -36,13 +36,32 @@ cannot drift apart.
   the defaults and under ``mixed_ir`` + ``ladder``, and the coupled
   two-stage case9 problem (K=3, shared dispatch) both structured and dense.
   Written to ``anchor_structured_single.json``.
+* ``--form {polar,rect,ivr,wr}`` (default ``polar``): the batched
+  configurations above with another ACOPF formulation.  A formulation other
+  than polar writes ``anchor_<form>_<case>_b<batch>.json`` and records the
+  formulation as ``form``; polar files are written as before.
+* ``--one-thread`` with a batched configuration: the same reference run on
+  one core with XLA's CPU matmuls single-threaded, its lanes added to the
+  existing anchor file as ``one_thread``.  On rectangular case118 lane 0
+  that rounding alone moves the JAX package's own objective by 4.7e-6 (13
+  iterations against 25): the smoke run accepts a lane within 1e-6 of either
+  reference run.
+* ``--forms-single``: one-lane float64 solves of the other formulations and
+  of the polar extensions through ``optimize`` with ``tests/test_acopf.py``'s
+  parameters: ``acopf_rect`` on case9 and case118, ``acopf_ivr`` and
+  ``acopf_wr`` on case9 and case30, and ``acopf_polar`` on case9 with 12 PWL
+  cost segments and with one dcline (built from
+  ``sqpsolver_tpu_torch.models.matpower.case9_m_text`` in a temporary
+  directory); the case9 solves also with ``hessian_shift="ladder"``
+  (float64 throughout).  Written to ``anchor_forms_single.json``.
 
 Usage::
 
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py [--case C] [--batch B]
         [--algorithm SQP-TR|SQP-LS] [--backend pallas|xla] [--max-iter N]
-        [--cache-dir DIR] [--out PATH]
+        [--form polar|rect|ivr|wr] [--cache-dir DIR] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --hs [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --forms-single [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --structured [--single]
         [--case C] [--batch B] [--out PATH]
 
@@ -105,6 +124,15 @@ XLA_NOTE = (
     "(pallas) route casts every matrix to float32, so under it the IPM's "
     "phase 2 is not a float64 phase; the xla route factors phase 2 in true "
     "float64, which is what the port does under either backend"
+)
+
+
+ONE_THREAD_NOTE = (
+    "the same reference run on one core with XLA's CPU matmuls single-"
+    "threaded: their rounding differs from the multi-threaded run's, and on a "
+    "lane whose float32 first-pass trajectory that rounding decides, the "
+    "reference itself stops at another point of the same optimum, more than "
+    "1e-6 away in objective"
 )
 
 
@@ -236,6 +264,85 @@ def run_structured_single(out_path: str) -> None:
         fh.write("\n")
 
 
+#: ``--forms-single``: ``tests/test_acopf.py``'s ``PARAMS`` for every solve
+FORMS_PARAMS = dict(max_iter=100, OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4,
+                    use_soc=True)
+#: name -> (formulation, case, PWL segments, ``DCLINES`` key of the dcline)
+FORMS_SINGLE = {
+    "rect_case9": ("rect", "case9", 0, None),
+    "rect_case118": ("rect", "case118", 0, None),
+    "ivr_case9": ("ivr", "case9", 0, None),
+    "ivr_case30": ("ivr", "case30", 0, None),
+    "wr_case9": ("wr", "case9", 0, None),
+    "wr_case30": ("wr", "case30", 0, None),
+    "polar_case9_pwl12": ("polar", "case9", 12, None),
+    "polar_case9_dcline": ("polar", "case9", 0, "free"),
+}
+#: the case9 solves again with the ``ladder`` shift: float64 arithmetic
+#: throughout, where the default ``eigh`` shift estimates the smallest
+#: eigenvalue in float32, whose last bits differ between LAPACK builds
+FORMS_LADDER = [name for name, spec in FORMS_SINGLE.items() if spec[1] == "case9"]
+
+
+def forms_case(spec, directory):
+    """The case of one ``FORMS_SINGLE`` entry, parsed by the JAX package;
+    PWL and dcline variants of case9 are written to ``directory`` from the
+    port's ``case9_m_text``, under the name its ``case9_variant`` gives them."""
+    from sqpsolver_tpu.models import matpower
+
+    import sqpsolver_tpu_torch.models.matpower as t_matpower
+
+    _, case, segs, dc = spec
+    if not (segs or dc):
+        return matpower.load_case(case)
+    name = t_matpower.case9_variant_name(segs, dc)
+    path = os.path.join(directory, f"{name}.m")
+    with open(path, "w") as fh:
+        fh.write(t_matpower.case9_m_text(segs, t_matpower.DCLINES[dc] if dc else None))
+    return matpower.parse_matpower(path, name=name)
+
+
+def run_forms_single(out_path: str) -> None:
+    """``--forms-single``: the one-lane anchors of the other formulations."""
+    import tempfile
+
+    import jax
+
+    import sqpsolver_tpu as sqp
+    from sqpsolver_tpu.models import acopf
+
+    t0 = time.time()
+    record = dict(
+        reference=dict(
+            package="JAX reference package",
+            platform=jax.devices()[0].platform,
+            jax_version=jax.__version__,
+        ),
+        params=FORMS_PARAMS,
+        params_ladder=dict(FORMS_PARAMS, hessian_shift="ladder"),
+        forms={k: list(v) for k, v in FORMS_SINGLE.items()},
+        solves={},
+        solves_ladder={},
+    )
+    runs = [("solves", name, "params") for name in FORMS_SINGLE]
+    runs += [("solves_ladder", name, "params_ladder") for name in FORMS_LADDER]
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, name, params in runs:
+            spec = FORMS_SINGLE[name]
+            case = forms_case(spec, tmp)
+            nlp = getattr(acopf, f"acopf_{spec[0]}")(case, scenario_batchable=False)
+            t1 = time.time()
+            rec = result_record(sqp.optimize(nlp, sqp.Parameters(**record[params])))
+            rec["seconds_with_compile"] = round(time.time() - t1, 1)
+            rec.update(n=nlp.n, m=nlp.m, num_linear=nlp.num_linear)
+            record[kind][name] = rec
+            print(f"[{time.time() - t0:7.1f}s] {kind} {name}: {rec['status']} "
+                  f"{rec['obj']:.10g} in {rec['iterations']}", file=sys.stderr, flush=True)
+    with open(out_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+
+
 def _worker_init() -> None:
     sys.path.insert(0, ROOT)
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -305,9 +412,17 @@ def main() -> None:
                     help="the block-structured (BBD) KKT path (reference on xla)")
     ap.add_argument("--single", action="store_true",
                     help="with --structured: the one-lane structured anchors")
+    ap.add_argument("--form", default="polar", choices=["polar", "rect", "ivr", "wr"],
+                    help="the ACOPF formulation of a batched anchor (default polar)")
+    ap.add_argument("--forms-single", action="store_true",
+                    help="write the one-lane anchors of the other formulations "
+                         "(anchor_forms_single.json) instead")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--max-iter", type=int, default=None,
                     help=f"default {PARAMS['max_iter']}; 100 for structured case118")
+    ap.add_argument("--one-thread", action="store_true",
+                    help="run a batched reference again on one core and add its lanes to "
+                         "the existing anchor file as 'one_thread' (see ONE_THREAD_NOTE)")
     ap.add_argument("--cache-dir", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -321,8 +436,11 @@ def main() -> None:
         # case118 one does (see XLA_NOTE)
         args.backend = "xla"
         ls = "structured_"
-    name = f"anchor_{ls}{args.case}_b{args.batch}.json"
-    if args.hs:
+    form = "" if args.form == "polar" else f"{args.form}_"
+    name = f"anchor_{ls}{form}{args.case}_b{args.batch}.json"
+    if args.forms_single:
+        name = "anchor_forms_single.json"
+    elif args.hs:
         name = "anchor_hs.json"
     elif args.single:
         name = "anchor_structured_single.json"
@@ -330,6 +448,12 @@ def main() -> None:
 
     sys.path.insert(0, ROOT)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    if args.one_thread:
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + " --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"
+        ).strip()
+        os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
     import jax
 
     jax.config.update("jax_enable_x64", True)
@@ -339,6 +463,9 @@ def main() -> None:
     if args.single:
         run_structured_single(out_path)
         return
+    if args.forms_single:
+        run_forms_single(out_path)
+        return
     if args.algorithm == "SQP-LS" and CHUNKED[args.case]:
         raise SystemExit("--algorithm SQP-LS drives the monolithic case30 path only")
     if args.cache_dir:
@@ -347,7 +474,8 @@ def main() -> None:
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     import jax.numpy as jnp
 
-    from sqpsolver_tpu.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu.models import acopf
+    from sqpsolver_tpu.models.acopf import load_scenarios
     from sqpsolver_tpu.models.matpower import load_case
     from sqpsolver_tpu.parallel.batch import (
         batch_data,
@@ -359,6 +487,7 @@ def main() -> None:
     from sqpsolver_tpu.status import Status
 
     config = dict(
+        **({} if args.form == "polar" else {"form": args.form}),
         case=args.case,
         batch=args.batch,
         seed=7,
@@ -370,7 +499,7 @@ def main() -> None:
     if chunked:
         config["chunked"] = chunked
     case = load_case(config["case"])
-    nlp = acopf_polar(case)
+    nlp = getattr(acopf, f"acopf_{args.form}")(case)
     # the file's ``params`` are the path's own (the kernel backend); the
     # reference may run the library backend instead, and says so
     params = Parameters(**dict(config["params"], kkt_backend=args.backend))
@@ -384,6 +513,21 @@ def main() -> None:
 
     t0 = time.time()
     extra = {}
+    if args.one_thread:
+        out = (make_chunked_batch_solver(nlp, params, log=log, **chunked) if chunked
+               else make_batch_solver(nlp, params))(data)
+        jax.block_until_ready(out.x)
+        with open(out_path) as fh:
+            record = json.load(fh)
+        record["one_thread"] = dict(
+            lanes_of(out), seconds_with_compile=round(time.time() - t0, 1),
+            note=ONE_THREAD_NOTE,
+        )
+        with open(out_path, "w") as fh:
+            json.dump(record, fh, indent=1)
+            fh.write("\n")
+        print(json.dumps(record["one_thread"]["obj"]))
+        return
     if chunked:
         first = make_chunked_batch_solver(
             nlp, params, sub_batch=chunked["sub_batch"], log=log

@@ -234,3 +234,87 @@ def parse_matpower(path: str, name: str | None = None) -> PowerCase:
         pwl_icpt=np.asarray(pwl_icpt) if pwl_gen else None,
         **dc,
     )
+
+
+def case9_m_text(pwl_segments: int = 0, dcline_row=None) -> str:
+    """MATPOWER ``.m`` text of the in-code ``case9``, optionally with its
+    quadratic costs replaced by ``pwl_segments``-segment piecewise-linear
+    costs (breakpoints on the quadratic, evenly spaced over [pmin, pmax]) and
+    with one ``mpc.dcline`` row (``idx_dcline.m`` columns, MW / MVAr).
+
+    The same text as the JAX package's test emitter, so that both packages
+    parse the same cases with PWL costs and HVDC lines;
+    :func:`parse_matpower` reads it back."""
+    from .power import case9
+
+    c = case9()
+    base = c.baseMVA
+    lines = ["function mpc = case9x", "mpc.version = '2';", f"mpc.baseMVA = {base};"]
+
+    def matrix(name, rows):
+        body = "\n".join("  " + "\t".join(f"{v:.10g}" for v in r) + ";" for r in rows)
+        return f"mpc.{name} = [\n{body}\n];"
+
+    bus = []
+    for i in range(c.nb):
+        btype = 3 if i == c.ref_bus else (2 if i in c.gen_bus else 1)
+        bus.append([
+            i + 1, btype, c.bus_pd[i] * base, c.bus_qd[i] * base,
+            c.bus_gs[i] * base, c.bus_bs[i] * base, 1, 1.0, 0.0, 345, 1,
+            c.bus_vmax[i], c.bus_vmin[i],
+        ])
+    lines.append(matrix("bus", bus))
+    gen = []
+    for gi in range(c.ng):
+        gen.append([
+            c.gen_bus[gi] + 1, 0, 0, c.gen_qmax[gi] * base, c.gen_qmin[gi] * base,
+            1.0, base, 1, c.gen_pmax[gi] * base, c.gen_pmin[gi] * base,
+        ])
+    lines.append(matrix("gen", gen))
+    br = []
+    for li in range(c.nl):
+        rate = 0.0 if not np.isfinite(c.br_rate[li]) else c.br_rate[li] * base
+        br.append([
+            c.br_f[li] + 1, c.br_t[li] + 1, c.br_r[li], c.br_x[li], c.br_b[li],
+            rate, rate, rate, 0, 0, 1,
+        ])
+    lines.append(matrix("branch", br))
+    cost = []
+    for gi in range(c.ng):
+        if pwl_segments:
+            xs = np.linspace(c.gen_pmin[gi] * base, c.gen_pmax[gi] * base, pwl_segments + 1)
+            ys = c.cost_c2[gi] * xs**2 + c.cost_c1[gi] * xs + c.cost_c0[gi]
+            cost.append([1, 0, 0, pwl_segments + 1] + [v for xy in zip(xs, ys) for v in xy])
+        else:
+            cost.append([2, 0, 0, 3, c.cost_c2[gi], c.cost_c1[gi], c.cost_c0[gi]])
+    lines.append(matrix("gencost", cost))
+    if dcline_row is not None:
+        lines.append(matrix("dcline", [dcline_row]))
+    return "\n".join(lines)
+
+
+#: ``mpc.dcline`` rows for :func:`case9_m_text`, from bus 1 to bus 7: pinned
+#: to zero transfer, free and lossless within +-100 MW, and forced to carry
+#: 40 MW at 10% loss
+DCLINES = {
+    "zero": [1, 7, 1, 0, 0, 0, 0, 1.0, 1.0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "free": [1, 7, 1, 0, 0, 0, 0, 1.0, 1.0, -100, 100, -50, 50, -50, 50, 0, 0],
+    "lossy": [1, 7, 1, 0, 0, 0, 0, 1.0, 1.0, 40, 40, 0, 0, 0, 0, 0, 0.10],
+}
+
+
+def case9_variant_name(pwl_segments: int = 0, dcline: str | None = None) -> str:
+    """The case name :func:`case9_variant` gives, e.g. ``case9_pwl12_dcfree``."""
+    return "case9" + (f"_pwl{pwl_segments}" if pwl_segments else "") + (
+        f"_dc{dcline}" if dcline else ""
+    )
+
+
+def case9_variant(directory: str, pwl_segments: int = 0, dcline: str | None = None) -> PowerCase:
+    """Write :func:`case9_m_text` with ``pwl_segments`` PWL segments and the
+    ``DCLINES[dcline]`` row to ``directory`` and parse it back."""
+    name = case9_variant_name(pwl_segments, dcline)
+    path = os.path.join(directory, f"{name}.m")
+    with open(path, "w") as fh:
+        fh.write(case9_m_text(pwl_segments, DCLINES[dcline] if dcline else None))
+    return parse_matpower(path, name=name)

@@ -27,7 +27,20 @@ JAX it runs on its own, without the suite's JAX conftest::
   devices;
 * the case118 model evaluates bit for bit the same every time on the card
   (constraints, Jacobian, Lagrangian Hessian: bus sums in a fixed order, no
-  atomics), and so do two solves of the first five iterations;
+  atomics), and so do two solves of the first five iterations, in the polar
+  formulation (16 scenarios) and the rectangular one (4 scenarios);
+* the polar formulation's extensions on the card: case9 with 4-segment
+  piecewise-linear costs and a free HVDC line, 4 load scenarios, float64
+  throughout (the reference example's ACOPF parameters with the ``ladder``
+  shift: the default ``eigh`` estimates its shift in float32, whose last
+  bits differ between the card and the CPU), against the same solve on the
+  CPU (statuses equal and solved, objectives within 1e-6 relative: the free
+  line's reactive ends cost nothing, and where a lane stops along that flat
+  direction moves its objective by ~1.5e-7 between the two devices' float64
+  sums);
+* the W-space formulation on the card: ``acopf_wr`` on case30 through
+  ``optimize`` (float64) ends as on the CPU: the same status and iterations,
+  objectives within 1e-10 relative;
 * ``optimize`` runs on the card by default, and hs014 (SQP-TR and SQP-LS)
   and hs071 (SQP-TR) end there as on the CPU: the same status and
   iterations, objectives within 1e-10 relative;
@@ -57,6 +70,8 @@ SLICE = dict(
     qp_max_iter=30, kkt_precision="mixed_ir", hessian_shift="ladder",
     qp_rescue=False, init_projection="off", kkt_backend="pallas",
 )
+#: the reference example's ACOPF parameters (``tests/test_acopf.py``)
+ACOPF = dict(max_iter=100, OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4, use_soc=True)
 
 
 @pytest.fixture
@@ -170,14 +185,17 @@ def test_case118_chunked_solve_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_case118_is_bit_reproducible_on_the_card(cuda):
+@pytest.mark.parametrize("form,batch", [("polar", 16), ("rect", 4)])
+def test_case118_is_bit_reproducible_on_the_card(cuda, form, batch):
+    from sqpsolver_tpu_torch.models import acopf
+
     case = load_case("case118")
-    nlp = acopf_polar(case)
-    theta = load_scenarios(case, 16, seed=7, spread=0.03)
-    data = tp.batch_data(nlp, 16, theta=theta, device=cuda)
+    nlp = getattr(acopf, f"acopf_{form}")(case)
+    theta = load_scenarios(case, batch, seed=7, spread=0.03)
+    data = tp.batch_data(nlp, batch, theta=theta, device=cuda)
     gen = torch.Generator(device="cuda").manual_seed(118)
     x = data.x0 + 0.05 * torch.randn(data.x0.shape, generator=gen, device=cuda, dtype=data.x0.dtype)
-    lam = torch.randn((16, nlp.m), generator=gen, device=cuda, dtype=x.dtype)
+    lam = torch.randn((batch, nlp.m), generator=gen, device=cuda, dtype=x.dtype)
 
     def evaluate():
         return (nlp.obj_cons(x, data.theta)[1], nlp.cons_jac(x, data.theta),
@@ -192,6 +210,35 @@ def test_case118_is_bit_reproducible_on_the_card(cuda):
     one, two = solver(data), solver(data)
     for key in ("x", "obj_val", "qp_iters_total", "status"):
         assert torch.equal(getattr(one, key), getattr(two, key)), key
+
+
+@pytest.mark.gpu
+def test_pwl_dcline_case9_on_card_matches_cpu(cuda, tmp_path):
+    from sqpsolver_tpu_torch.models.matpower import case9_variant
+
+    case = case9_variant(str(tmp_path), 4, "free")
+    nlp = acopf_polar(case)
+    assert nlp.structure is None and nlp.num_linear == 1 + 12
+    theta = load_scenarios(case, 4, seed=7, spread=0.03)
+    solver = tp.make_batch_solver(nlp, tp.Parameters(**ACOPF, hessian_shift="ladder"))
+    gpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device=cuda)))
+    cpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device="cpu")))
+    np.testing.assert_array_equal(gpu["status"], cpu["status"])
+    assert np.isin(gpu["status"], [0, 1, 6]).all()
+    np.testing.assert_allclose(gpu["obj_val"], cpu["obj_val"], rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_wr_case30_on_card_matches_cpu(cuda):
+    from sqpsolver_tpu_torch.models.acopf import acopf_wr
+
+    nlp = acopf_wr(load_case("case30"), scenario_batchable=False)
+    params = tp.Parameters(**ACOPF)
+    gpu = tp.optimize(nlp, params)  # the card by default
+    cpu = tp.optimize(nlp, params, device="cpu")
+    assert gpu.success and gpu.status == cpu.status
+    assert gpu.iterations == cpu.iterations
+    assert abs(gpu.obj_val - cpu.obj_val) <= 1e-10 * max(1.0, abs(cpu.obj_val))
 
 
 @pytest.mark.gpu
