@@ -15,6 +15,7 @@ Phases (any failure raises and the exit code is non-zero):
 2. build ``sqpsolver_tpu_torch/csrc/chol_tile.cu`` with ``nvcc`` for sm_90a;
 3. hold the Cholesky kernel against its plain PyTorch version on the card
    at the case30 path's shapes (32x72x72 K, 32x96x96 capped Schur S), at
+   the same per shard of the two-shard sharded path (16x72x72, 16x96x96), at
    256x128x128, at the case118 path's diagonal blocks (16x128x128, and the
    ragged last panels 16x88x88 of K and 16x80x80 of S), at the ragged last
    panel 16x104x104 of the rectangular case118 path's capped S, at the
@@ -23,7 +24,7 @@ Phases (any failure raises and the exit code is non-zero):
    and odd sizes (3x1x1, 5x7x7, 32x33x33, 32x127x127) that reach every width
    the kernel is compiled for and its ragged edge: max|dL| / max|L| <= 1e-5
    and an exact-zero upper triangle; an indefinite tile must give a
-   non-finite factor on that tile only.  At the first eight shapes the
+   non-finite factor on that tile only.  At the first ten shapes the
    kernel, the plain version and one library call
    that computes the same function (``torch.linalg.cholesky_ex``, a yardstick
    that the package's kernel path never calls) are timed with CUDA events, and
@@ -111,10 +112,41 @@ Phases (any failure raises and the exit code is non-zero):
     one HVDC line (both cases written as MATPOWER text to a temporary
     directory and parsed back); each must end in the JAX package's status
     and, where JAX succeeded, within 1e-6 relative of its objective
-    (``anchor_forms_single.json``); iterations are printed beside JAX's.
+    (``anchor_forms_single.json``); iterations are printed beside JAX's;
+14. the case30 path's data and parameters through the instance-sharded
+    solver (``parallel.sharding.make_sharded_solver``), after one
+    ``make_batch_solver`` run on the same data: on the one-device mesh
+    ``instance_mesh(["cuda:0"])`` the result must be bit-identical lane for
+    lane to ``make_batch_solver``'s; on ``["cuda:0", "cuda:0"]`` (two shards
+    of 16, solved in turn) every lane must end in the anchor's status within
+    1e-6 relative of its objective (``anchor_case30_b32.json``; iterations
+    printed, not gated: cuBLAS may pick another algorithm for a batch of 16
+    than for 32, so bit equality across batch sizes is no contract); the
+    kernel's launch count, set to 0 before each of the two sharded runs and
+    read after it, must be positive in each; phase 3 holds the kernel
+    against its plain version at the shards' shapes, (16, 72) and (16, 96),
+    as well;
+15. the same case30 b32 solve on a world-size-1 NCCL process group
+    (``parallel.multihost``: ``initialize_distributed`` on
+    ``tcp://127.0.0.1:<free port>``, ``global_instance_mesh``,
+    ``host_local_batch``, ``make_sharded_solver``): the census
+    (``convergence_census``, one NCCL ``all_reduce``) must count as many
+    solved lanes as the anchor, every lane within 1e-6 relative of its
+    objective, the kernel's launch count positive; the group is destroyed
+    at the end, so later phases run as before;
+16. one structured instance block-sharded: real IEEE case118
+    (``acopf_polar(load_case("case118"), scenario_batchable=False)``, n=344)
+    with phase 11's parameters (float64, ``ladder``, SOC,
+    ``kkt_structured=True``, ``max_iter=40``, the partition's own 8 parts),
+    once through ``make_block_sharded_solver`` over ``["cuda:0",
+    "cuda:0"]`` (two groups of four parts) and once unsharded: both must end
+    in status 0 within 1e-6 relative of ``anchor_structured_single.json``'s
+    case118 objective; iterations printed.  This path factors in float64,
+    through the library, so it launches no ``chol_tile``; phases 14 and 15
+    carry the kernel.
 
 Standard output ends with these lines, in this order: the kernel's share of
-its bound and its ratio to the library call at the paths' seven shapes; the
+its bound and its ratio to the library call at the paths' nine shapes; the
 kernels' JSON record ``{"kernels": [...]}``; the card's name and power limit
 as ``nvidia-smi`` gives them; and last ``{"ok": true, "device": {"platform":
 "gpu", "kind": ..., "count": ...}}``.  This script imports neither JAX nor
@@ -137,21 +169,20 @@ OBJ_RTOL = 1.0e-6  # per-lane objective against the JAX anchor
 INVERSE_TOL = 1.0e-4  # max|L Linv - I| of the blocked inverse, float32
 BLOCKED = ((16, 344), (16, 336), (16, 360), (8, 896))  # case118 b16's dense K and capped S; rect's capped S; structured S (sub_batch 8)
 SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
+SHARDED_SHAPES = ((16, 72), (16, 96))  # the same, per shard of the two-shard case30 run
 PANEL_SHAPES = ((16, 128), (16, 88), (16, 80), (16, 104))  # case118 b16: K = 128+128+88, S = 128+128+80; rect S = 128+128+104
 STRUCTURED_PANEL = (8, 128)  # structured case118, sub_batch 8: S = 7 x 128
-TIMED = SLICE_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,)
+TIMED = SLICE_SHAPES + SHARDED_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,)
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
 PATHS = ("case30", "case118", "single", "ls_case30", "structured118", "structured_single",
-         "rect118", "forms_single")
-# phases 5, 6, 8, 9, 10, 11, 12, 13
+         "rect118", "forms_single", "sharded", "multihost", "block_sharded")
+# phases 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16
 #: the chunked case118 paths and their anchors
 ANCHOR_118 = {
     "case118": "anchor_case118_b16.json",
     "structured118": "anchor_structured_case118_b16.json",
     "rect118": "anchor_rect_case118_b16.json",
 }
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOP_PER_S = 67.0e12  # H100 SXM data sheet, float32 outside the tensor cores
 
 
 def log(*args):
@@ -210,9 +241,12 @@ def chol_bound(batch, n):
     """Least milliseconds the card could take to factor (batch, n, n) float32
     tiles, and what binds: every input byte read once and every output byte
     written once over the memory rate, against batch * n^3 / 3 operations over
-    the float32 rate."""
-    bytes_ms = 2 * batch * n * n * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = batch * n**3 / 3 / FP32_FLOP_PER_S * 1e3
+    the float32 rate (``utils.flops.device_peaks``: the card's data sheet)."""
+    from sqpsolver_tpu_torch.utils.flops import device_peaks
+
+    peaks = device_peaks()
+    bytes_ms = 2 * batch * n * n * 4 / peaks["hbm"] * 1e3
+    ops_ms = batch * n**3 / 3 / peaks["fp32"] * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -357,20 +391,13 @@ def run_slice(torch, record):
     """Phase 4: the case30 b32 slice through the port's public entry points."""
     import numpy as np
 
-    from sqpsolver_tpu_torch import Parameters, batch_data, make_batch_solver
+    from sqpsolver_tpu_torch import batch_data, make_batch_solver
     from sqpsolver_tpu_torch._lanes import any_lane
-    from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
-    from sqpsolver_tpu_torch.models.matpower import load_case
     from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
 
-    with open(os.path.join(ROOT, "sqpsolver_tpu_torch", "data", "anchor_case30_b32.json")) as fh:
-        anchor = json.load(fh)
-    case = load_case(anchor["case"])
-    nlp = acopf_polar(case)
+    anchor, nlp, theta, params = _case30_fleet()
     batch = anchor["batch"]
-    theta = load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
-    params = Parameters(**anchor["params"])
-    log(f"slice: {case.name} n={nlp.n} m={nlp.m} batch={batch} params={anchor['params']}")
+    log(f"slice: {anchor['case']} n={nlp.n} m={nlp.m} batch={batch} params={anchor['params']}")
     solver = make_batch_solver(nlp, params)
 
     def solve():
@@ -787,6 +814,193 @@ def run_forms_single(torch, record):
         raise AssertionError(f"forms_single: off the JAX anchor: {failures}")
 
 
+def _case30_fleet():
+    """The case30 b32 path's anchor, NLP, scenarios and parameters."""
+    from sqpsolver_tpu_torch import Parameters
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu_torch.models.matpower import load_case
+
+    anchor = _anchor("anchor_case30_b32.json")
+    case = load_case(anchor["case"])
+    theta = load_scenarios(case, anchor["batch"], seed=anchor["seed"], spread=anchor["spread"])
+    return anchor, acopf_polar(case), theta, Parameters(**anchor["params"])
+
+
+def _fleet_gate(tag, anchor, out, nlp):
+    """Every lane finite, in the anchor's status, within ``OBJ_RTOL`` of its
+    objective; returns the largest relative difference."""
+    import numpy as np
+
+    batch = anchor["batch"]
+    status = out.status.cpu().numpy()
+    rel = np.abs(out.obj_val.cpu().numpy() / np.asarray(anchor["lanes"]["obj"]) - 1.0)
+    if out.x.shape != (batch, nlp.n) or not bool(out.x.isfinite().all().item()):
+        raise AssertionError(f"{tag}: x is not finite of shape (batch, n)")
+    if status.tolist() != anchor["lanes"]["status"]:
+        raise AssertionError(f"{tag}: statuses {status.tolist()} differ from the anchor's")
+    if not (rel <= OBJ_RTOL).all():
+        raise AssertionError(f"{tag}: lanes off the anchor: {np.nonzero(rel > OBJ_RTOL)[0]}")
+    return float(rel.max())
+
+
+def run_sharded(torch, record, card):
+    """Phase 14: case30 b32 through the instance-sharded solver."""
+    import numpy as np
+
+    from sqpsolver_tpu_torch import batch_data, make_batch_solver
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+    from sqpsolver_tpu_torch.parallel.sharding import instance_mesh, make_sharded_solver
+
+    anchor, nlp, theta, params = _case30_fleet()
+    data = batch_data(nlp, anchor["batch"], theta=theta)  # on the card by default
+
+    def timed(solver):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solver(data)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the comparison run, before the counts are set to 0
+    whole, wall_whole = timed(make_batch_solver(nlp, params))
+    meshes = {"one": instance_mesh(["cuda:0"]), "two": instance_mesh(["cuda:0", "cuda:0"])}
+    solvers = {k: make_sharded_solver(nlp, params, m) for k, m in meshes.items()}
+    launches = {}
+    chol_tile.launches = 0
+    out1, wall1 = timed(solvers["one"])
+    launches["one"] = chol_tile.launches
+    chol_tile.launches = 0
+    out2, wall2 = timed(solvers["two"])
+    launches["two"] = chol_tile.launches
+    for k, n in launches.items():
+        record["launches"] += n
+        record["launches_by_path"][f"sharded_{k}_case30_b32"] = n
+    fields = ("x", "obj_val", "status", "iterations", "qp_iters_total", "mult_g", "prim_infeas")
+    same = {f: torch.equal(getattr(out1, f), getattr(whole, f)) for f in fields}
+    rel2 = _fleet_gate("sharded (two shards)", anchor, out2, nlp)
+    it_whole = whole.iterations.cpu().numpy()
+    it2 = out2.iterations.cpu().numpy()
+    log(f"sharded on {card}: make_batch_solver {wall_whole:.4f} s; one-device mesh "
+        f"{wall1:.4f} s, bit-identical to it lane for lane: {all(same.values())} {same}")
+    log(f"sharded on {card}: two shards of 16 on cuda:0 in turn {wall2:.4f} s, "
+        f"{int(it2.sum())} iterations (whole batch {int(it_whole.sum())}, anchor "
+        f"{anchor['totals']['iterations']}; lanes whose count moved "
+        f"{np.nonzero(it2 != it_whole)[0].tolist()}), max rel. obj diff to the anchor "
+        f"{rel2:.3e} (tol {OBJ_RTOL:g}); chol_tile launches: one-device mesh "
+        f"{launches['one']}, two shards {launches['two']}")
+    if not all(same.values()):
+        raise AssertionError(f"sharded: the one-device mesh differs from make_batch_solver: {same}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"sharded ({k}): the Cholesky kernel was never launched")
+
+
+def run_multihost(torch, record, card):
+    """Phase 15: case30 b32 on a world-size-1 NCCL process group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sqpsolver_tpu_torch import batch_data
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+    from sqpsolver_tpu_torch.parallel import multihost as mh
+    from sqpsolver_tpu_torch.parallel.sharding import make_sharded_solver
+
+    anchor, nlp, theta, params = _case30_fleet()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    mh.initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        backend = dist.get_backend()
+        mesh = mh.global_instance_mesh()
+        log(f"multihost: process group up in {time.perf_counter() - t0:.3f} s, backend "
+            f"{backend}, rank {mesh.rank} of {mesh.world}, devices {mesh.devices}")
+        if backend != "nccl":
+            raise AssertionError(f"multihost: backend {backend}, not nccl")
+        gdata = mh.host_local_batch(batch_data(nlp, anchor["batch"], theta=theta,
+                                               device=mesh.devices[0]), mesh)
+        solver = make_sharded_solver(nlp, params, mesh)
+        torch.cuda.synchronize()
+        chol_tile.launches = 0
+        t0 = time.perf_counter()
+        out = solver(gdata)
+        census = mh.convergence_census(out.status, mesh)
+        wall = time.perf_counter() - t0
+        launches = chol_tile.launches
+    finally:
+        dist.destroy_process_group()
+    record["launches"] += launches
+    record["launches_by_path"]["multihost_case30_b32"] = launches
+    want = sum(s in (0, 1, 6) for s in anchor["lanes"]["status"])
+    rel = _fleet_gate("multihost", anchor, out, nlp)
+    log(f"multihost on {card}: wall {wall:.4f} s (census included), census {census} "
+        f"through NCCL all_reduce, anchor solved {want}; max rel. obj diff to the anchor "
+        f"{rel:.3e}; {int(out.iterations.sum().item())} iterations; {launches} chol_tile "
+        f"launches; group destroyed")
+    if census["n_done_ok"] != want or census["n_total"] != anchor["batch"]:
+        raise AssertionError(f"multihost: census {census}, anchor solved {want}")
+    if launches <= 0:
+        raise AssertionError("multihost: the Cholesky kernel was never launched")
+
+
+def run_block_sharded(torch, record, card):
+    """Phase 16: one structured case118 instance block-sharded over a
+    repeated-device mesh, and unsharded."""
+    import numpy as np
+
+    import sqpsolver_tpu_torch as tp
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar
+    from sqpsolver_tpu_torch.models.matpower import load_case
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+    from sqpsolver_tpu_torch.ops.kkt_bbd import part_groups
+    from sqpsolver_tpu_torch.parallel.sharding import instance_mesh, make_block_sharded_solver
+    from sqpsolver_tpu_torch.structure import build_block_structure
+
+    anchor = _anchor("anchor_structured_single.json")
+    want = anchor["solves"]["case118"]
+    params = tp.Parameters(**anchor["params"]["case118"])
+    nlp = acopf_polar(load_case("case118"), scenario_batchable=False)
+    g_l = np.broadcast_to(np.asarray(nlp.g_l, dtype=np.float64), (nlp.m,))
+    g_u = np.broadcast_to(np.asarray(nlp.g_u, dtype=np.float64), (nlp.m,))
+    bs = build_block_structure(nlp.n, nlp.m, nlp.structure, np.isfinite(g_l) & (g_l == g_u),
+                               n_parts=(params.kkt_parts or None))
+    mesh = instance_mesh(["cuda:0", "cuda:0"], axis="block")
+    groups = part_groups(bs.P, mesh.devices)
+    log(f"block_sharded: case118 n={nlp.n} m={nlp.m}, kkt_parts={params.kkt_parts} (the "
+        f"partition's own), P={bs.P} parts of nd={bs.nd}, separator ns={bs.ns}; groups "
+        f"{[(str(d), sl.start, sl.stop) for d, sl in groups]}")
+    if bs.P % len(mesh.devices):
+        raise AssertionError(f"block_sharded: P={bs.P} does not divide over the mesh")
+    solvers = {
+        "block-sharded": make_block_sharded_solver(nlp, params, mesh),
+        "unsharded": tp.make_solver(nlp, params),
+    }
+    data = tp.batch_data(nlp, 1)  # on the card by default
+    failures = []
+    chol_tile.launches = 0
+    for name, solver in solvers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tp.from_raw(solver(data), 0.0)
+        wall = time.perf_counter() - t0
+        rel = abs(res.obj_val - want["obj"]) / abs(want["obj"])
+        ok = int(res.status) == 0 == want["status"] and rel <= OBJ_RTOL
+        ok = ok and res.x.shape == (nlp.n,) and bool(np.all(np.isfinite(res.x)))
+        log(f"block_sharded on {card}: {name}: {res.status_name} obj {res.obj_val:.10g} in "
+            f"{res.iterations} iterations ({res.qp_iters_total} QP trips), wall {wall:.3f} s; "
+            f"JAX obj {want['obj']:.10g} in {want['iterations']} iterations; rel. obj diff "
+            f"{rel:.2e} (tol {OBJ_RTOL:g})" + ("" if ok else "  <-- MISMATCH"))
+        if not ok:
+            failures.append(name)
+    launches = chol_tile.launches
+    record["launches_by_path"]["block_sharded_case118"] = launches
+    log(f"block_sharded: {launches} chol_tile launches (float64 factors go to the library)")
+    if failures:
+        raise AssertionError(f"block_sharded: off the JAX anchor: {failures}")
+
+
 def profile_case118(torch, max_iter, out_path):
     """Phase 7 for case118: the path cut to ``max_iter`` SQP iterations (a
     whole solve is millions of device events), once plain and once under the
@@ -933,7 +1147,13 @@ def main() -> int:
         run_case118(torch, record, "rect118")
     if "forms_single" in paths:
         run_forms_single(torch, record)
-    for batch, n in SLICE_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,):
+    if "sharded" in paths:
+        run_sharded(torch, record, card)
+    if "multihost" in paths:
+        run_multihost(torch, record, card)
+    if "block_sharded" in paths:
+        run_block_sharded(torch, record, card)
+    for batch, n in SLICE_SHAPES + SHARDED_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,):
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "
             f"its bound, {t['ms'] / t['library_ms']:.3f} of the library call's time")

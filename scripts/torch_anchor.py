@@ -55,6 +55,20 @@ cannot drift apart.
   directory); the case9 solves also with ``hessian_shift="ladder"``
   (float64 throughout).  Written to ``anchor_forms_single.json``.
 
+* ``--block-sharded``: ``tests/test_block_sharding.py``'s problem and
+  parameters, the coupled two-stage case9 problem (K=4 load scenarios,
+  ``kkt_parts=8``, ``power`` shift), solved by the JAX package block-sharded
+  over a fake 8-device CPU mesh and unsharded: status, objective,
+  iterations and QP trips of each.  Written to
+  ``anchor_block_sharded_case9.json``.
+* ``--multiprocess``: ``tests/test_multiprocess.py``'s fleet, a global
+  batch of 4 case9 load scenarios (``load_scenarios(case9, 4, seed=7,
+  spread=0.03)``) with its parameters, solved by the JAX package's
+  ``make_sharded_solver`` over a fake 4-device CPU mesh (one lane a device,
+  as its two processes of two devices hold them): each lane's status,
+  objective, iterations and QP trips.  Written to
+  ``anchor_multiprocess_case9_b4.json``.
+
 Usage::
 
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py [--case C] [--batch B]
@@ -64,6 +78,8 @@ Usage::
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --forms-single [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --structured [--single]
         [--case C] [--batch B] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --block-sharded [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --multiprocess [--out PATH]
 
 The reference's factorization backend defaults to the path's own,
 ``kkt_backend="pallas"``: on the CPU the JAX Cholesky kernel runs in
@@ -343,6 +359,86 @@ def run_forms_single(out_path: str) -> None:
         fh.write("\n")
 
 
+#: ``--block-sharded``: ``tests/test_block_sharding.py``'s ``PARAMS`` and problem
+BLOCK_SHARDED_PARAMS = dict(_ACOPF_TOL, max_iter=100, use_soc=True, kkt_structured=True,
+                            hessian_shift="power", kkt_parts=8)
+BLOCK_SHARDED = dict(case="case9", K=4, seed=5, spread=0.02, devices=8)
+#: ``--multiprocess``: ``tests/test_multiprocess.py``'s fleet and parameters
+MULTIPROCESS_PARAMS = dict(_ACOPF_TOL, max_iter=40, init_projection="off")
+MULTIPROCESS = dict(case="case9", batch=4, seed=7, spread=0.03, devices=4)
+
+
+def _reference() -> dict:
+    import jax
+
+    return dict(package="JAX reference package", platform=jax.devices()[0].platform,
+                jax_version=jax.__version__, devices=len(jax.devices()))
+
+
+def run_block_sharded(out_path: str) -> None:
+    """``--block-sharded``: the coupled case9 problem, block-sharded over the
+    fake 8-device mesh and unsharded."""
+    import sqpsolver_tpu as sqp
+    from sqpsolver_tpu.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu.models.power import case9
+    from sqpsolver_tpu.models.stochastic import couple_scenarios, pg_shared_mask
+    from sqpsolver_tpu.parallel import sharding as shd
+    from sqpsolver_tpu.results import from_raw
+
+    case = case9()
+    nlp = acopf_polar(case)
+    thetas = load_scenarios(case, BLOCK_SHARDED["K"], seed=BLOCK_SHARDED["seed"],
+                            spread=BLOCK_SHARDED["spread"])
+    coupled = couple_scenarios(nlp, thetas, pg_shared_mask(case, nlp))
+    params = sqp.Parameters(**BLOCK_SHARDED_PARAMS)
+    mesh = shd.instance_mesh(axis="block")
+    assert mesh.devices.size == BLOCK_SHARDED["devices"], mesh.devices.size
+    record = dict(reference=_reference(), params=BLOCK_SHARDED_PARAMS, coupled=BLOCK_SHARDED,
+                  n=coupled.n, m=coupled.m, solves={})
+    t0 = time.time()
+    solvers = dict(block_sharded=shd.make_block_sharded_solver(coupled, params, mesh),
+                   unsharded=sqp.make_solver(coupled, params))
+    for name, solver in solvers.items():
+        t1 = time.time()
+        rec = result_record(from_raw(solver(coupled.data()), 0.0))
+        rec["seconds_with_compile"] = round(time.time() - t1, 1)
+        record["solves"][name] = rec
+        print(f"[{time.time() - t0:7.1f}s] {name}: {rec['status']} {rec['obj']!r} in "
+              f"{rec['iterations']} ({rec['qp_iters_total']} QP trips)", file=sys.stderr, flush=True)
+    with open(out_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+
+
+def run_multiprocess(out_path: str) -> None:
+    """``--multiprocess``: the two-process test's global case9 batch of 4,
+    one lane a device of a fake 4-device mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    import sqpsolver_tpu as sqp
+    from sqpsolver_tpu.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu.models.power import case9
+    from sqpsolver_tpu.parallel import sharding as shd
+    from sqpsolver_tpu.parallel.batch import batch_data
+
+    case = case9()
+    nlp = acopf_polar(case)
+    cfg = MULTIPROCESS
+    theta = load_scenarios(case, cfg["batch"], seed=cfg["seed"], spread=cfg["spread"])
+    mesh = shd.instance_mesh(jax.devices()[:cfg["devices"]])
+    data = shd.shard_data(batch_data(nlp, cfg["batch"], theta=theta, dtype=jnp.float64), mesh)
+    t0 = time.time()
+    out = shd.make_sharded_solver(nlp, sqp.Parameters(**MULTIPROCESS_PARAMS), mesh)(data)
+    jax.block_until_ready(out.x)
+    record = dict(reference=dict(_reference(), seconds_with_compile=round(time.time() - t0, 1)),
+                  params=MULTIPROCESS_PARAMS, **cfg, lanes=lanes_of(out))
+    with open(out_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+    print(json.dumps(record["lanes"]))
+
+
 def _worker_init() -> None:
     sys.path.insert(0, ROOT)
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -417,6 +513,12 @@ def main() -> None:
     ap.add_argument("--forms-single", action="store_true",
                     help="write the one-lane anchors of the other formulations "
                          "(anchor_forms_single.json) instead")
+    ap.add_argument("--block-sharded", action="store_true",
+                    help="write the block-sharded coupled case9 anchor "
+                         "(anchor_block_sharded_case9.json) instead")
+    ap.add_argument("--multiprocess", action="store_true",
+                    help="write the two-process case9 b4 anchor "
+                         "(anchor_multiprocess_case9_b4.json) instead")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--max-iter", type=int, default=None,
                     help=f"default {PARAMS['max_iter']}; 100 for structured case118")
@@ -440,6 +542,10 @@ def main() -> None:
     name = f"anchor_{ls}{form}{args.case}_b{args.batch}.json"
     if args.forms_single:
         name = "anchor_forms_single.json"
+    elif args.block_sharded:
+        name = "anchor_block_sharded_case9.json"
+    elif args.multiprocess:
+        name = "anchor_multiprocess_case9_b4.json"
     elif args.hs:
         name = "anchor_hs.json"
     elif args.single:
@@ -454,6 +560,13 @@ def main() -> None:
             + " --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"
         ).strip()
         os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
+    if args.block_sharded or args.multiprocess:
+        # the fake CPU mesh of the JAX package's tests (tests/conftest.py)
+        devices = (BLOCK_SHARDED if args.block_sharded else MULTIPROCESS)["devices"]
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + f" --xla_force_host_platform_device_count={devices}"
+        ).strip()
     import jax
 
     jax.config.update("jax_enable_x64", True)
@@ -465,6 +578,12 @@ def main() -> None:
         return
     if args.forms_single:
         run_forms_single(out_path)
+        return
+    if args.block_sharded:
+        run_block_sharded(out_path)
+        return
+    if args.multiprocess:
+        run_multiprocess(out_path)
         return
     if args.algorithm == "SQP-LS" and CHUNKED[args.case]:
         raise SystemExit("--algorithm SQP-LS drives the monolithic case30 path only")

@@ -41,6 +41,13 @@ Batched ACOPF on case30, on the GPU::
                         kkt_backend="pallas", qp_rescue=False,
                         init_projection="off", OutputFlag=0)
     res = make_batch_solver(nlp, params)(data)
+
+Several devices: ``make_sharded_solver(nlp, params, instance_mesh())`` cuts
+the lanes over the GPUs and runs the shards in turn in this process;
+``parallel.multihost`` runs one process per GPU on ``torch.distributed``
+(``torchrun --nproc_per_node=N``).  ``utils.flops`` and ``utils.profiling``
+hold the analytic FLOP counts, the card's peak rates and the profiler
+helpers.
 """
 
 from __future__ import annotations
@@ -64,6 +71,13 @@ from .parallel.batch import (
     make_chunked_batch_solver,
     summarize_batch,
 )
+from .parallel.sharding import (
+    instance_mesh,
+    make_block_sharded_solver,
+    make_sharded_solver,
+    shard_data,
+    solve_sharded,
+)
 from .nlp import resolve_device
 from .parameters import Parameters, get_parameter, set_parameter
 from .results import Results, from_raw
@@ -85,14 +99,19 @@ __all__ = [
     "from_raw",
     "get_parameter",
     "initial_point",
+    "instance_mesh",
     "is_success",
     "make_batch_solver",
+    "make_block_sharded_solver",
     "make_chunked_batch_solver",
+    "make_sharded_solver",
     "make_solver",
     "nlp_data_to_torch",
     "optimize",
     "result_to_numpy",
     "set_parameter",
+    "shard_data",
+    "solve_sharded",
     "sqp_state_to_numpy",
     "sqp_state_to_torch",
     "status_name",

@@ -42,7 +42,7 @@ from torch.func import grad, jvp, vmap
 
 from .._lanes import amax0, any_lane, dot, map_lanes, mv, select
 from ..nlp import NLP, NLPData, initial_point
-from ..ops.kkt_bbd import BbdOperator, BlockMaps, HessBlocks
+from ..ops.kkt_bbd import BbdOperator, BlockMaps, HessBlocks, part_groups
 from ..ops.qp_ipm import IpmOptions, solve_qp, solve_qp_op
 from ..parameters import Parameters
 from ..status import Status
@@ -194,7 +194,11 @@ def _true_float32_matmul():
 
 
 def make_solver(
-    nlp: NLP, params: Parameters = Parameters(), *, verbose: Optional[bool] = None
+    nlp: NLP,
+    params: Parameters = Parameters(),
+    *,
+    verbose: Optional[bool] = None,
+    block_shard=None,
 ) -> Callable[[NLPData], SqpResult]:
     """Build the batched SQP-TR solve function: batched :class:`NLPData`
     (every tensor with a leading lane axis) -> batched :class:`SqpResult`.
@@ -203,7 +207,12 @@ def make_solver(
 
     ``verbose`` (default ``params.OutputFlag``) prints a header and one line
     per SQP iteration, as the JAX package does, when the batch has one lane;
-    a batch of several lanes prints nothing."""
+    a batch of several lanes prints nothing.
+
+    ``block_shard=mesh`` (structured mode only): split the BBD part axis
+    over ``mesh.devices`` (``ops.kkt_bbd.part_groups``);
+    ``params.kkt_parts`` must be a multiple of the mesh size (0, the
+    partition's own count, is)."""
     if params.algorithm != "SQP-TR":
         raise ValueError(f"make_solver builds SQP-TR; got algorithm={params.algorithm!r}")
     structured = bool(params.kkt_structured)
@@ -213,6 +222,14 @@ def make_solver(
             "sqpsolver_tpu_torch.structure.NLPStructure; models can also use "
             "structure.detect_structure)"
         )
+    if block_shard is not None:
+        if not structured:
+            raise ValueError("block sharding requires kkt_structured=True")
+        if params.kkt_parts % len(block_shard.devices):
+            raise ValueError(
+                f"block sharding: kkt_parts={params.kkt_parts} is not a multiple of the "
+                f"mesh's {len(block_shard.devices)} devices"
+            )
     collect_stats = bool(params.StatisticsFlag)
     log_iters = bool(params.OutputFlag) if verbose is None else verbose
     solve_t0 = [0.0]
@@ -273,12 +290,14 @@ def make_solver(
             n, m, nlp.structure, np.isfinite(g_l_np) & (g_l_np == g_u_np),
             n_parts=(params.kkt_parts or None),
         )
+        groups = None if block_shard is None else part_groups(bs.P, block_shard.devices)
         per_device = {}
 
         def block_maps(ref: torch.Tensor) -> BlockMaps:
-            """The block maps on ``ref``'s device."""
+            """The block maps on ``ref``'s device (the lanes'; a block shard's
+            part groups go by part index, whatever devices they name)."""
             if ref.device not in per_device:
-                per_device[ref.device] = BlockMaps(bs, ref.device)
+                per_device[ref.device] = BlockMaps(bs, ref.device, groups=groups)
             return per_device[ref.device]
 
         def jac_mv(J, p):

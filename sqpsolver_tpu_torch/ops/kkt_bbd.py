@@ -31,11 +31,23 @@ variable (row) has exactly one slot, so scattering the blocks back reads the
 slot of each global index instead of writing every pad slot to one dummy
 index.  Sums over parts are ``einsum`` products; nothing here adds with
 atomics.
+
+Block sharding of one instance (``BlockMaps(groups=part_groups(P,
+devices))``, the JAX package's GSPMD part-axis sharding made explicit): the
+P parts split into ``len(devices)`` contiguous groups by part index, group
+``g`` on ``devices[g]`` (the partition may return more parts than
+``kkt_parts`` asked for; the groups then differ by one part).  Each group's
+interior factors and panel ``W = L_pp^-1 K_ps`` are formed and applied on
+its device; each group's separator term ``W' W`` (and ``W' y`` in a solve)
+is summed onto the lanes' device, the one cross-device reduction.  The
+blocks are assembled, and the separator and the stiff Schur complement
+factored, on the lanes' device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import reduce
 from typing import NamedTuple
 
 import numpy as np
@@ -68,12 +80,16 @@ class HessBlocks(NamedTuple):
 
 
 class BbdFactor(NamedTuple):
-    Li_pp: torch.Tensor  # (B, P, nd, nd) explicit inverse of interior factors
-    W: torch.Tensor  # (B, P, nd, ns) L_pp^-1 K_ps
+    """A BBD factor; the interior pieces are tuples with one entry per part
+    group, each on its group's device (one group unless block-sharded)."""
+
+    Li_pp: tuple  # (B, P_g, nd, nd) explicit inverses of the interior factors
+    W: tuple  # (B, P_g, nd, ns) L_pp^-1 K_ps
     Li_ss: torch.Tensor  # (B, ns, ns) inverse of the equilibrated Schur factor
     dS: torch.Tensor  # (B, ns) Jacobi scale of the separator Schur complement
     delta: torch.Tensor  # (B,) regularization applied
     ok: torch.Tensor  # (B,) bool
+    groups: tuple  # ((device, part slice), ...)
 
 
 def _diag(M):
@@ -90,7 +106,9 @@ def _tri_inv_batched(L):
     return tri_inv(L.reshape((-1, k, k))).reshape(lead + (k, k))
 
 
-def bbd_factorize(K_pp, K_ps, K_ss, delta0, min_pivot: float = 1e-3) -> BbdFactor:
+def bbd_factorize(
+    K_pp, K_ps, K_ss, delta0, min_pivot: float = 1e-3, groups=None
+) -> BbdFactor:
     """Factor a batch of BBD matrices with the escalating-regularization
     ladder: ``delta`` starts at ``delta0`` (B,) and multiplies by 100 until
     both factors are finite with pivots above ``min_pivot``, at most 10
@@ -99,11 +117,17 @@ def bbd_factorize(K_pp, K_ps, K_ss, delta0, min_pivot: float = 1e-3) -> BbdFacto
 
     Inputs are factor-dtype blocks (float32 normally, float64 in the rescue
     phase); padded interior slots carry an identity diagonal and zero
-    couplings (:class:`BbdOperator` assembles them so)."""
+    couplings (:class:`BbdOperator` assembles them so).  ``groups``
+    (``BlockMaps.groups``) factors each part group's interiors on its own
+    device; every group's finite test and smallest pivot join the
+    separator's on the lanes' device before the ladder decides."""
     B, P, nd, _ = K_pp.shape
     ns = K_ss.shape[-1]
     fdt = K_pp.dtype
     dev = K_pp.device
+    groups = groups or ((dev, slice(None)),)
+    parts = [(gdev, K_pp[:, sl].to(gdev), K_ps[:, sl].to(gdev)) for gdev, sl in groups]
+    G = len(parts)
     diag_scale = torch.clamp_min(
         torch.maximum(
             amax0(torch.abs(_diag(K_pp)).reshape(B, P * nd)),
@@ -115,25 +139,32 @@ def bbd_factorize(K_pp, K_ps, K_ss, delta0, min_pivot: float = 1e-3) -> BbdFacto
     delta0 = torch.as_tensor(delta0, dtype=fdt, device=dev).expand(B)
 
     def attempt(delta):
-        L_pp = _chol_library(
-            _eye_add(K_pp, delta[:, None, None]).reshape(B * P, nd, nd)
-        ).reshape(B, P, nd, nd)
-        W = torch.linalg.solve_triangular(L_pp, K_ps, upper=False)
-        S = _eye_add(K_ss, delta[:, None]) - torch.einsum("bpki,bpkj->bij", W, W)
+        L_g, W_g, seps, finite, pivots = [], [], [], [], []
+        for gdev, Kpp, Kps in parts:
+            Pg = Kpp.shape[1]
+            L = _chol_library(
+                _eye_add(Kpp, delta.to(gdev)[:, None, None]).reshape(B * Pg, nd, nd)
+            ).reshape(B, Pg, nd, nd)
+            W = torch.linalg.solve_triangular(L, Kps, upper=False)
+            L_g.append(L)
+            W_g.append(W)
+            seps.append(torch.einsum("bpki,bpkj->bij", W, W).to(dev))
+            finite.append(torch.isfinite(L).flatten(1).all(-1).to(dev))
+            pivots.append(amin_inf(_diag(L).reshape(B, Pg * nd)).to(dev))
+        S = _eye_add(K_ss, delta[:, None]) - reduce(torch.add, seps)
         # the Schur complement loses the caller's unit diagonal; its own
         # Jacobi scale keeps the float32 factor and the pivot probe meaningful
         dS = torch.rsqrt(torch.clamp_min(torch.abs(_diag(S)), 1e-30))
         L_ss = _chol_library(S * dS[:, :, None] * dS[:, None, :])
-        ok = torch.isfinite(L_pp).flatten(1).all(-1) & torch.isfinite(L_ss).flatten(1).all(-1)
+        # (one group: the reductions over groups are the group's own values)
+        ok = reduce(torch.logical_and, finite) & torch.isfinite(L_ss).flatten(1).all(-1)
         # pivot probe: both factors are of unit-diagonal matrices, so a tiny
         # pivot means numerically singular at the factor's precision
-        piv = torch.minimum(
-            amin_inf(_diag(L_pp).reshape(B, P * nd)), amin_inf(_diag(L_ss))
-        )
-        return (L_pp, W, L_ss, dS), ok & (piv > min_pivot)
+        piv = torch.minimum(reduce(torch.minimum, pivots), amin_inf(_diag(L_ss)))
+        return (*L_g, *W_g, L_ss, dS), ok & (piv > min_pivot)
 
     def pick(mask, a, b):
-        return tuple(select(mask, x, y) for x, y in zip(a, b))
+        return tuple(select(mask.to(x.device), x, y) for x, y in zip(a, b))
 
     delta = delta0
     fac, ok = attempt(delta)
@@ -166,10 +197,10 @@ def bbd_factorize(K_pp, K_ps, K_ss, delta0, min_pivot: float = 1e-3) -> BbdFacto
             fac_hi = pick(ok_m, fac_m, fac_hi)
         delta = torch.where(escalated, hi, delta)
         fac = pick(escalated, fac_hi, fac)
-    L_pp, W, L_ss, dS = fac
+    L_ss, dS = fac[2 * G:]
     return BbdFactor(
-        Li_pp=_tri_inv_batched(L_pp), W=W, Li_ss=_tri_inv_batched(L_ss), dS=dS,
-        delta=delta, ok=ok,
+        Li_pp=tuple(_tri_inv_batched(L) for L in fac[:G]), W=fac[G:2 * G],
+        Li_ss=_tri_inv_batched(L_ss), dS=dS, delta=delta, ok=ok, groups=tuple(groups),
     )
 
 
@@ -181,16 +212,26 @@ def bbd_solve(fact: BbdFactor, r_pp, r_ss):
     if vec:
         r_pp = r_pp.unsqueeze(-1)
         r_ss = r_ss.unsqueeze(-1)
+    dev = r_ss.device
     # forward: y_p = L_pp^-1 r_p;  y_s = Ls^-1 dS (r_s - sum_p W_p' y_p)
-    y_p = torch.matmul(fact.Li_pp, r_pp)
-    t = r_ss - torch.einsum("bpki,bpkr->bir", fact.W, y_p)
+    y_p = [
+        torch.matmul(Li, r_pp[:, sl].to(gdev))
+        for (gdev, sl), Li in zip(fact.groups, fact.Li_pp)
+    ]
+    t = r_ss - reduce(torch.add, [
+        torch.einsum("bpki,bpkr->bir", W, y).to(dev) for W, y in zip(fact.W, y_p)
+    ])
     dS = fact.dS.unsqueeze(-1)
     y_s = torch.matmul(fact.Li_ss, dS * t)
     # back: x_s = dS Ls^-T y_s;  x_p = L_pp^-T (y_p - W x_s)
     x_s = dS * torch.matmul(fact.Li_ss.transpose(-1, -2), y_s)
-    x_p = torch.matmul(
-        fact.Li_pp.transpose(-1, -2), y_p - torch.matmul(fact.W, x_s.unsqueeze(1))
-    )
+    x_p = [
+        torch.matmul(
+            Li.transpose(-1, -2), y - torch.matmul(W, x_s.to(y.device).unsqueeze(1))
+        ).to(dev)
+        for Li, W, y in zip(fact.Li_pp, fact.W, y_p)
+    ]
+    x_p = x_p[0] if len(x_p) == 1 else torch.cat(x_p, dim=1)
     if vec:
         return x_p.squeeze(-1), x_s.squeeze(-1)
     return x_p, x_s
@@ -201,16 +242,35 @@ def bbd_solve(fact: BbdFactor, r_pp, r_ss):
 # --------------------------------------------------------------------------
 
 
+def part_groups(P: int, devices) -> tuple:
+    """Split P parts over ``devices`` (which may repeat) in contiguous groups
+    by part index, as evenly as possible (the first ``P % len(devices)``
+    groups one part larger): ``((devices[g], slice), ...)``; a device left
+    without a part gets no group."""
+    G = len(devices)
+    groups, lo = [], 0
+    for g, d in enumerate(devices):
+        k = P // G + (g < P % G)
+        if k:
+            groups.append((torch.device(d), slice(lo, lo + k)))
+            lo += k
+    return tuple(groups)
+
+
 class BlockMaps:
     """The index and mask constants of a ``BlockStructure`` on one device,
     with the layout maps and block matvecs shared by the SQP driver and the
     IPM operator.  Every method takes tensors with the lanes on their leading
-    axis."""
+    axis.
 
-    def __init__(self, bs, device=None):
+    ``groups`` (:func:`part_groups`) block-shards the factorization; None
+    (unsharded) is one group on the lanes' device."""
+
+    def __init__(self, bs, device=None, groups=None):
         self.bs = bs
         dev = torch.device("cpu") if device is None else torch.device(device)
         self.device = dev
+        self.groups = groups
 
         def idx(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)
@@ -473,7 +533,9 @@ class BbdOperator:
 
         # pivot probe only for float32 factors; full-precision factors
         # escalate on a non-finite factor alone
-        fact = bbd_factorize(K_pp, K_ps, K_ss, delta0, min_pivot=1e-3 if mixed else 0.0)
+        fact = bbd_factorize(
+            K_pp, K_ps, K_ss, delta0, min_pivot=1e-3 if mixed else 0.0, groups=maps.groups
+        )
         delta64 = fact.delta.to(dtype)
         # the ladder's delta applies to the equilibrated blocks: in unscaled
         # units K + delta diag(K), which the refinement target must match

@@ -28,7 +28,10 @@ def test_the_port_imports_no_jax():
     assert {"sqpsolver_tpu_torch.algorithms.sqp_ls", "sqpsolver_tpu_torch.models.hs",
             "sqpsolver_tpu_torch.utils.checkpoint", "sqpsolver_tpu_torch.structure",
             "sqpsolver_tpu_torch.ops.kkt_bbd",
-            "sqpsolver_tpu_torch.models.stochastic"} <= set(modules)
+            "sqpsolver_tpu_torch.models.stochastic",
+            "sqpsolver_tpu_torch.parallel.sharding", "sqpsolver_tpu_torch.parallel.multihost",
+            "sqpsolver_tpu_torch.utils.flops",
+            "sqpsolver_tpu_torch.utils.profiling"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
