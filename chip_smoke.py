@@ -8,6 +8,7 @@ PyTorch built for CUDA::
     python3 chip_smoke.py --profile118 out/profile_case118.json  # + a profiled case118 run, cut to 8 iterations
     python3 chip_smoke.py --paths case118   # a partial run: no closing "ok" line
     python3 chip_smoke.py --paths rect118,forms_single   # the other ACOPF formulations
+    python3 chip_smoke.py --paths case30,plane_case30,plane_trip118   # the float32 matrix plane
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -143,7 +144,24 @@ Phases (any failure raises and the exit code is non-zero):
     in status 0 within 1e-6 relative of ``anchor_structured_single.json``'s
     case118 objective; iterations printed.  This path factors in float64,
     through the library, so it launches no ``chol_tile``; phases 14 and 15
-    carry the kernel.
+    carry the kernel;
+17. the case30 path's data and configuration under the float32 matrix plane
+    (``kkt_precision="mixed_plane"``: K and S assembled, equilibrated and
+    factored in float32 through the kernel, the whole 2x2 block refined in
+    float64) through ``make_batch_solver``: every lane the JAX package solved
+    (``anchor_plane_case30_b32.json``) solved within 1e-6 relative of its
+    objective, the kernel's launch count positive; wall (beside phase 5's
+    ``mixed_ir`` wall of the same call), iterations, lane-trips, host syncs
+    and launches are printed;
+18. one KKT trip at case118 b16's shapes under the plane and under
+    ``mixed_ir``: the first QP of real case118 b16 at its start point (one
+    SQP iteration of phase 6's configuration, n=344, m=609, Schur cap 336),
+    its first IPM trip's and its last before a lane leaves the loop,
+    ``DenseOp.prepare`` plus one
+    ``solve_block`` on the captured arguments, timed between CUDA events and
+    as device time under ``torch.profiler``, each result's relative error
+    against a float64 LAPACK solve of the same 2x2 system and its residual
+    printed (a non-finite solve fails).
 
 Standard output ends with these lines, in this order: the kernel's share of
 its bound and its ratio to the library call at the paths' nine shapes; the
@@ -175,8 +193,9 @@ STRUCTURED_PANEL = (8, 128)  # structured case118, sub_batch 8: S = 7 x 128
 TIMED = SLICE_SHAPES + SHARDED_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,)
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
 PATHS = ("case30", "case118", "single", "ls_case30", "structured118", "structured_single",
-         "rect118", "forms_single", "sharded", "multihost", "block_sharded")
-# phases 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16
+         "rect118", "forms_single", "sharded", "multihost", "block_sharded", "plane_case30",
+         "plane_trip118")
+# phases 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18
 #: the chunked case118 paths and their anchors
 ANCHOR_118 = {
     "case118": "anchor_case118_b16.json",
@@ -814,13 +833,13 @@ def run_forms_single(torch, record):
         raise AssertionError(f"forms_single: off the JAX anchor: {failures}")
 
 
-def _case30_fleet():
-    """The case30 b32 path's anchor, NLP, scenarios and parameters."""
+def _case30_fleet(name="anchor_case30_b32.json"):
+    """A case30 b32 path's anchor, NLP, scenarios and parameters."""
     from sqpsolver_tpu_torch import Parameters
     from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
     from sqpsolver_tpu_torch.models.matpower import load_case
 
-    anchor = _anchor("anchor_case30_b32.json")
+    anchor = _anchor(name)
     case = load_case(anchor["case"])
     theta = load_scenarios(case, anchor["batch"], seed=anchor["seed"], spread=anchor["spread"])
     return anchor, acopf_polar(case), theta, Parameters(**anchor["params"])
@@ -1001,6 +1020,221 @@ def run_block_sharded(torch, record, card):
         raise AssertionError(f"block_sharded: off the JAX anchor: {failures}")
 
 
+def run_plane_case30(torch, record, card, wall_ir=None):
+    """Phase 17: case30 b32 under the float32 matrix plane
+    (``kkt_precision="mixed_plane"``), phase 5's configuration otherwise."""
+    import numpy as np
+
+    from sqpsolver_tpu_torch import batch_data, make_batch_solver
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+
+    anchor, nlp, theta, params = _case30_fleet("anchor_plane_case30_b32.json")
+    batch = anchor["batch"]
+    log(f"plane_case30: {anchor['case']} n={nlp.n} m={nlp.m} batch={batch} params={anchor['params']}")
+    solver = make_batch_solver(nlp, params)
+
+    def solve():
+        data = batch_data(nlp, batch, theta=theta)  # on the card by default
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solver(data)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, first = solve()
+    chol_tile.launches = 0
+    syncs0 = any_lane.syncs
+    out, wall = solve()
+    launches = chol_tile.launches
+    syncs = any_lane.syncs - syncs0
+    record["launches"] += launches
+    record["launches_by_path"]["plane_case30_b32"] = launches
+
+    status = out.status.cpu().numpy()
+    obj = out.obj_val.cpu().numpy()
+    ref_status = np.asarray(anchor["lanes"]["status"])
+    ref = np.asarray(anchor["lanes"]["obj"])
+    ref_ok = np.isin(ref_status, [0, 1, 6])
+    ok = np.isin(status, [0, 1, 6])
+    rel = np.abs(obj - ref) / np.abs(ref)
+    iters = int(out.iterations.sum().item())
+    trips = int(out.qp_iters_total.sum().item())
+    n_ok = int(ok.sum())
+    beside = (f"; phase 5 (mixed_ir) in this call {wall_ir:.4f} s, plane / mixed_ir "
+              f"{wall / wall_ir:.3f}" if wall_ir else "; phase 5 not run in this call")
+    log(f"plane_case30 on {card}: wall {wall:.4f} s (first run {first:.4f} s){beside}")
+    log(f"plane_case30: {iters} SQP iterations ({iters / wall:.2f} SQP-iter/s), {n_ok}/{batch} "
+        f"solved ({n_ok / wall:.3f} solves/s), {trips} lane-IPM-trips, {syncs} host syncs, "
+        f"{launches} chol_tile launches")
+    log(f"plane_case30: JAX anchor {int(ref_ok.sum())}/{batch} solved, "
+        f"{anchor['totals']['iterations']} iterations, {anchor['totals']['qp_trips']} IPM trips "
+        f"({anchor['reference']['platform']}, kkt_backend={anchor['reference']['kkt_backend']}); "
+        f"statuses port {status.tolist()} anchor {ref_status.tolist()}; port iterations "
+        f"{out.iterations.cpu().numpy().tolist()}, anchor {anchor['lanes']['iterations']}")
+    log(f"plane_case30: objective rel. diff to the anchor over the lanes it solved: max "
+        f"{np.max(rel[ref_ok], initial=0.0):.3e} (tol {OBJ_RTOL:g})")
+    if out.x.shape != (batch, nlp.n) or not torch.isfinite(out.x).all().item():
+        raise AssertionError("plane_case30: x is not finite of shape (batch, n)")
+    if not ok[ref_ok].all():
+        raise AssertionError(
+            f"plane_case30: lanes the anchor solved and the port did not: {np.nonzero(ref_ok & ~ok)[0]}"
+        )
+    if not (rel[ref_ok] <= OBJ_RTOL).all():
+        raise AssertionError(f"plane_case30: lanes off the anchor: {np.nonzero(ref_ok & (rel > OBJ_RTOL))[0]}")
+    if launches <= 0:
+        raise AssertionError("plane_case30: the Cholesky kernel was never launched")
+    return wall
+
+
+def capture_case118_kkt(torch):
+    """The KKT systems the IPM factors in the first QP of real case118 b16 at
+    its start point: one SQP iteration of dense case118's configuration, with
+    the arguments of every ``DenseOp.prepare`` of that QP and of the first
+    ``solve_block`` after each kept, up to the last trip on which every
+    lane is still iterating."""
+    from sqpsolver_tpu_torch import Parameters, batch_data, make_batch_solver
+    from sqpsolver_tpu_torch.models import acopf
+    from sqpsolver_tpu_torch.models.matpower import load_case
+    from sqpsolver_tpu_torch.ops import qp_ipm
+
+    anchor = _anchor(ANCHOR_118["case118"])
+    case = load_case(anchor["case"])
+    nlp = acopf.acopf_polar(case)
+    theta = acopf.load_scenarios(case, anchor["batch"], seed=anchor["seed"], spread=anchor["spread"])
+    trips = []
+    prepare = qp_ipm.DenseOp.prepare
+
+    def capture(op, *args):
+        solve_block, delta = prepare(op, *args)
+        if trips and trips[0]["op"] is not op:
+            return solve_block, delta
+        trip = {"op": op, "args": tuple(a.clone() for a in args)}
+        trips.append(trip)
+
+        def first_solve(r1, r2):
+            trip.setdefault("rhs", (r1.clone(), r2.clone()))
+            return solve_block(r1, r2)
+
+        return first_solve, delta
+
+    qp_ipm.DenseOp.prepare = capture
+    try:
+        make_batch_solver(nlp, Parameters(**dict(anchor["params"], max_iter=1)))(
+            batch_data(nlp, anchor["batch"], theta=theta))
+    finally:
+        qp_ipm.DenseOp.prepare = prepare
+    torch.cuda.synchronize()
+    # a lane that has left the loop keeps its state bit for bit, so its
+    # arguments repeat: keep the trips before the first lane leaves
+    kept = [trips[0]]
+    for trip in trips[1:]:
+        if "rhs" not in trip or not bool((trip["args"][0] != kept[-1]["args"][0]).any(-1).all().item()):
+            break
+        kept.append(trip)
+    return kept
+
+
+def device_busy_ms(torch, fn, reps=3):
+    """Device time of one ``fn()`` (every kernel's time under
+    ``torch.profiler`` summed, over ``reps`` calls, per call), after one
+    warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def run_plane_trip118(torch, record, card):
+    """Phase 18: one KKT trip (``DenseOp.prepare`` and one ``solve_block``)
+    of real case118 b16 under the float32 matrix plane and under
+    ``mixed_ir``, timed and compared with a float64 solve of the same system."""
+    import dataclasses
+
+    import numpy as np
+
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile
+    from sqpsolver_tpu_torch.ops.qp_ipm import DenseOp
+
+    trips = capture_case118_kkt(torch)
+    base = trips[0]["op"]
+    Q, A = base.Q, base.A
+    B, m, n = A.shape
+    log(f"plane_trip118: case118 n={n} m={m} batch={B}, the first {len(trips)} IPM trips (every "
+        f"lane still iterating) of the first QP at the start point; Schur cap {base.opts.schur_cap}, ir_steps {base.ir_steps}, "
+        f"kkt_backend {base.opts.kkt_backend}")
+    out = {}
+    for label, trip in ((f"first (1 of {len(trips)})", trips[0]),
+                        (f"last ({len(trips)} of {len(trips)})", trips[-1])):
+        diag_k, invE_soft, stiff, E_stiff, delta0 = trip["args"]
+        r1, r2 = trip["rhs"]
+        K = Q + torch.diag_embed(diag_k) + torch.matmul(A.transpose(-1, -2) * invE_soft[:, None, :], A)
+        A_t = torch.where(stiff[:, :, None], A, 0.0)
+        row = {"n_stiff_max": int(stiff.sum(-1).max().item())}
+        for prec in ("mixed_plane", "mixed_ir"):
+            op = DenseOp(Q, A, dataclasses.replace(base.opts, plane=prec == "mixed_plane"),
+                         torch.float64)
+
+            def trip_fn(op=op):
+                solve_block, delta = op.prepare(diag_k, invE_soft, stiff, E_stiff, delta0)
+                return (*solve_block(r1, r2), delta)
+
+            launches0 = chol_tile.launches
+            dp, dy, delta = trip_fn()
+            launched = chol_tile.launches - launches0
+            # the float64 system this path solves, solved by LAPACK on the
+            # host: its ladder's delta acts on K's diagonal (the plane takes
+            # that diagonal from its float32 assembly, which moves the target
+            # by delta times its rounding)
+            Kd = K + torch.diag_embed(delta[:, None] * torch.diagonal(K, dim1=-2, dim2=-1).abs())
+            KKT = torch.cat([torch.cat([Kd, A_t.transpose(-1, -2)], -1),
+                             torch.cat([A_t, -torch.diag_embed(E_stiff)], -1)], -2)
+            rhs = torch.cat([r1, r2], -1)
+            x = torch.as_tensor(np.linalg.solve(KKT.cpu().numpy(), rhs.cpu().numpy()[..., None])[..., 0],
+                                device=rhs.device)
+            err_p = ((dp - x[:, :n]).abs().max() / x[:, :n].abs().max()).item()
+            err_y = ((dy - x[:, n:]).abs().max() / x[:, n:].abs().max()).item()
+            v = torch.cat([dp, dy], -1)
+            resid = ((torch.matmul(KKT, v.unsqueeze(-1)).squeeze(-1) - rhs).abs().max()
+                     / rhs.abs().max()).item()
+            times = []
+            for _ in range(7):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                trip_fn()
+                stop.record()
+                stop.synchronize()
+                times.append(start.elapsed_time(stop))
+            row[prec] = {"ms": statistics.median(times), "device_busy_ms": device_busy_ms(torch, trip_fn),
+                         "err_dp": err_p, "err_dy": err_y, "residual": resid,
+                         "delta_max": float(delta.max().item()),
+                         "chol_tile_launches": launched}
+            r = row[prec]
+            log(f"plane_trip118 {label} trip on {card}: {prec}: prepare + one solve_block "
+                f"{r['ms']:.3f} ms between events (median of 7), device busy "
+                f"{r['device_busy_ms']:.3f} ms; rel. error against float64 dp {err_p:.3e} dy "
+                f"{err_y:.3e}, residual {resid:.3e} of max|rhs|; delta max "
+                f"{r['delta_max']:.3e}; {launched} chol_tile launches")
+            if not bool(v.isfinite().all().item()):
+                raise AssertionError(f"plane_trip118: {prec} gave a non-finite solve")
+        pl, ir = row["mixed_plane"], row["mixed_ir"]
+        busy = (f"{pl['device_busy_ms'] / ir['device_busy_ms']:.3f}" if ir["device_busy_ms"] > 0
+                else "not measured (the profiler saw no device time)")
+        log(f"plane_trip118 {label} trip: plane / mixed_ir: {pl['ms'] / ir['ms']:.3f} of the time "
+            f"between events, {busy} of the device time; up to {row['n_stiff_max']} stiff rows")
+        out[label] = row
+    record["plane_trip118"] = out
+
+
 def profile_case118(torch, max_iter, out_path):
     """Phase 7 for case118: the path cut to ``max_iter`` SQP iterations (a
     whole solve is millions of device events), once plain and once under the
@@ -1127,10 +1361,11 @@ def main() -> int:
 
     record = check_kernel(torch, chol_blocked, card)
     record["blocked"] = check_blocked(torch, chol_blocked, card)
+    wall_ir = None
     if "case30" in paths:
-        solve, wall, trips = run_slice(torch, record)
+        solve, wall_ir, trips = run_slice(torch, record)
         if args.profile:
-            profile_slice(torch, solve, wall, trips, args.profile)
+            profile_slice(torch, solve, wall_ir, trips, args.profile)
     if "case118" in paths:
         run_case118(torch, record)
         if args.profile118:
@@ -1153,6 +1388,10 @@ def main() -> int:
         run_multihost(torch, record, card)
     if "block_sharded" in paths:
         run_block_sharded(torch, record, card)
+    if "plane_case30" in paths:
+        run_plane_case30(torch, record, card, wall_ir)
+    if "plane_trip118" in paths:
+        run_plane_trip118(torch, record, card)
     for batch, n in SLICE_SHAPES + SHARDED_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,):
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "

@@ -68,6 +68,16 @@ cannot drift apart.
   as its two processes of two devices hold them): each lane's status,
   objective, iterations and QP trips.  Written to
   ``anchor_multiprocess_case9_b4.json``.
+* ``--plane``: the float32 matrix plane (``kkt_precision="mixed_plane"``).
+  With a batched configuration (default case30 b32) the configuration above
+  with that one change, written to ``anchor_plane_<case>_b<batch>.json``.
+  ``--plane --single`` writes ``anchor_plane_single.json``: one-lane case30
+  through ``optimize`` with ``tests/test_schur_cap.py``'s plane parameters
+  (``power`` shift, SOC), SQP-LS hs071, structured case9 under ``ladder``, and
+  case30 b4 at the batched configuration through ``make_batch_solver``, the
+  batch also through the ``"xla"`` factor route (``batch_lanes_xla``: on
+  these float32-factor solves the two routes' rounding alone moves lanes'
+  iteration counts).
 
 Usage::
 
@@ -80,6 +90,8 @@ Usage::
         [--case C] [--batch B] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --block-sharded [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --multiprocess [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --plane [--single]
+        [--case C] [--batch B] [--out PATH]
 
 The reference's factorization backend defaults to the path's own,
 ``kkt_backend="pallas"``: on the CPU the JAX Cholesky kernel runs in
@@ -368,6 +380,68 @@ MULTIPROCESS_PARAMS = dict(_ACOPF_TOL, max_iter=40, init_projection="off")
 MULTIPROCESS = dict(case="case9", batch=4, seed=7, spread=0.03, devices=4)
 
 
+#: ``--plane --single``: the one-lane plane solves and the batch of four
+PLANE_SINGLE = {
+    "case30": dict(_ACOPF_TOL, kkt_precision="mixed_plane", hessian_shift="power",
+                   max_iter=100, use_soc=True),
+    "hs071_ls": dict(algorithm="SQP-LS", kkt_precision="mixed_plane", max_iter=500,
+                     OutputFlag=0),
+    "structured_case9": dict(_ACOPF_TOL, max_iter=60, kkt_structured=True,
+                             kkt_precision="mixed_plane", hessian_shift="ladder"),
+}
+PLANE_BATCH = dict(case="case30", batch=4, seed=7, spread=0.03,
+                   params=dict(PARAMS, kkt_precision="mixed_plane"))
+
+
+def _plane_problem(name: str):
+    from sqpsolver_tpu.models.acopf import acopf_polar
+    from sqpsolver_tpu.models.hs import hs_problem
+    from sqpsolver_tpu.models.matpower import load_case
+    from sqpsolver_tpu.models.power import case9
+
+    if name == "case30":
+        return acopf_polar(load_case("case30"), scenario_batchable=False)
+    if name == "hs071_ls":
+        return hs_problem("hs071").nlp
+    return acopf_polar(case9(), scenario_batchable=False)
+
+
+def run_plane_single(out_path: str) -> None:
+    """``--plane --single``: the float32 matrix plane's whole-solve anchors."""
+    import jax
+    import jax.numpy as jnp
+
+    import sqpsolver_tpu as sqp
+    from sqpsolver_tpu.models.acopf import acopf_polar, load_scenarios
+    from sqpsolver_tpu.models.matpower import load_case
+    from sqpsolver_tpu.parallel.batch import batch_data, make_batch_solver
+
+    t0 = time.time()
+    record = dict(reference=_reference(), params=PLANE_SINGLE, solves={}, batch=PLANE_BATCH)
+    for name, kw in PLANE_SINGLE.items():
+        t1 = time.time()
+        rec = result_record(sqp.optimize(_plane_problem(name), sqp.Parameters(**kw)))
+        rec["seconds_with_compile"] = round(time.time() - t1, 1)
+        record["solves"][name] = rec
+        print(f"[{time.time() - t0:7.1f}s] {name}: {rec['status']} {rec['obj']!r} in "
+              f"{rec['iterations']} ({rec['qp_iters_total']} QP trips)", file=sys.stderr, flush=True)
+    cfg = PLANE_BATCH
+    case = load_case(cfg["case"])
+    theta = load_scenarios(case, cfg["batch"], seed=cfg["seed"], spread=cfg["spread"])
+    for key, backend in (("batch_lanes", cfg["params"]["kkt_backend"]), ("batch_lanes_xla", "xla")):
+        t1 = time.time()
+        params = sqp.Parameters(**dict(cfg["params"], kkt_backend=backend))
+        out = make_batch_solver(acopf_polar(case), params)(
+            batch_data(acopf_polar(case), cfg["batch"], theta=theta, dtype=jnp.float64))
+        jax.block_until_ready(out.x)
+        record[key] = dict(lanes_of(out), seconds_with_compile=round(time.time() - t1, 1))
+        print(f"[{time.time() - t0:7.1f}s] {cfg['case']} b{cfg['batch']} ({backend}): "
+              f"{json.dumps(record[key])}", file=sys.stderr, flush=True)
+    with open(out_path, "w") as fh:
+        json.dump(record, fh, indent=1)
+        fh.write("\n")
+
+
 def _reference() -> dict:
     import jax
 
@@ -519,6 +593,9 @@ def main() -> None:
     ap.add_argument("--multiprocess", action="store_true",
                     help="write the two-process case9 b4 anchor "
                          "(anchor_multiprocess_case9_b4.json) instead")
+    ap.add_argument("--plane", action="store_true",
+                    help="the float32 matrix plane (kkt_precision='mixed_plane'); with "
+                         "--single the one-lane anchors (anchor_plane_single.json)")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--max-iter", type=int, default=None,
                     help=f"default {PARAMS['max_iter']}; 100 for structured case118")
@@ -538,6 +615,8 @@ def main() -> None:
         # case118 one does (see XLA_NOTE)
         args.backend = "xla"
         ls = "structured_"
+    if args.plane:
+        ls = "plane_"
     form = "" if args.form == "polar" else f"{args.form}_"
     name = f"anchor_{ls}{form}{args.case}_b{args.batch}.json"
     if args.forms_single:
@@ -549,7 +628,7 @@ def main() -> None:
     elif args.hs:
         name = "anchor_hs.json"
     elif args.single:
-        name = "anchor_structured_single.json"
+        name = "anchor_plane_single.json" if args.plane else "anchor_structured_single.json"
     out_path = args.out or os.path.join(DATA, name)
 
     sys.path.insert(0, ROOT)
@@ -574,7 +653,7 @@ def main() -> None:
         run_hs(out_path)
         return
     if args.single:
-        run_structured_single(out_path)
+        (run_plane_single if args.plane else run_structured_single)(out_path)
         return
     if args.forms_single:
         run_forms_single(out_path)
@@ -612,7 +691,8 @@ def main() -> None:
         seed=7,
         spread=0.03,
         params=dict(PARAMS, max_iter=args.max_iter, algorithm=args.algorithm,
-                    kkt_structured=args.structured),
+                    kkt_structured=args.structured,
+                    **({"kkt_precision": "mixed_plane"} if args.plane else {})),
     )
     chunked = (CHUNKED_STRUCTURED if args.structured else CHUNKED)[args.case]
     if chunked:

@@ -14,6 +14,7 @@ has shape ``(B,)``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -27,6 +28,19 @@ def any_lane(mask: torch.Tensor) -> bool:
 
 
 any_lane.syncs = 0
+
+
+@contextlib.contextmanager
+def true_float32_matmul():
+    """Turn TF32 off for float32 products (factors formed from TF32 products
+    keep ~3 digits and spoil the refinement they seed); the caller's setting
+    comes back on exit."""
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._lanes import amax0, any_lane, dot, map_lanes, mv, select
+from .._lanes import amax0, any_lane, dot, map_lanes, mv, select, true_float32_matmul
 from ..nlp import NLP, NLPData, initial_point
 from ..ops.qp_ipm import IpmOptions, solve_qp
 from ..parameters import Parameters
@@ -54,7 +54,7 @@ from .common import (
     schur_cap_for,
 )
 from .merit import merit_derivative
-from .sqp_tr import SqpResult, _true_float32_matmul
+from .sqp_tr import SqpResult
 
 _LS_TR = 1000.0  # fixed step box of the LS subproblem (sqp_line_search.jl:255)
 
@@ -507,7 +507,7 @@ def make_ls_solver(
                 f"  {'alpha':>14}  {'|p|':>14}  {'inf_pr':>14}  {'inf_du':>14}"
                 f"  {'compl':>14}  {'time':>10}"
             )
-        with _true_float32_matmul():
+        with true_float32_matmul():
             return run(d)
 
     return solve

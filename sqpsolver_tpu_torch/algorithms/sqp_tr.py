@@ -30,7 +30,6 @@ into bordered-block-diagonal blocks (``ops.kkt_bbd.JacBlocks`` /
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import time
@@ -40,7 +39,7 @@ import numpy as np
 import torch
 from torch.func import grad, jvp, vmap
 
-from .._lanes import amax0, any_lane, dot, map_lanes, mv, select
+from .._lanes import amax0, any_lane, dot, map_lanes, mv, select, true_float32_matmul
 from ..nlp import NLP, NLPData, initial_point
 from ..ops.kkt_bbd import BbdOperator, BlockMaps, HessBlocks, part_groups
 from ..ops.qp_ipm import IpmOptions, solve_qp, solve_qp_op
@@ -178,19 +177,6 @@ def _trust_region_box(x, x_l, x_u, tr):
     lb = torch.where(bad, torch.maximum(-trc, torch.clamp_max(v_lb, 0.0)), lb)
     ub = torch.where(bad, torch.minimum(trc, torch.clamp_min(v_ub, 0.0)), ub)
     return lb, ub
-
-
-@contextlib.contextmanager
-def _true_float32_matmul():
-    """Turn TF32 off for float32 products (factors formed from TF32 products
-    keep ~3 digits and spoil the refinement they seed); the caller's setting
-    comes back on exit."""
-    precision = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(precision)
 
 
 def make_solver(
@@ -860,12 +846,12 @@ def make_solver(
                 f"  {'|lam|inf':>15}  {'Delta':>14}  {'|p|':>14}"
                 f"  {'inf_pr':>14}  {'inf_du':>14}  {'time':>10}"
             )
-        with _true_float32_matmul():
+        with true_float32_matmul():
             return finalize(run_until(init_state(d), d, max_iter), d)
 
     def staged(fn):
         def stage(*args):
-            with _true_float32_matmul():
+            with true_float32_matmul():
                 return fn(*args)
 
         return stage

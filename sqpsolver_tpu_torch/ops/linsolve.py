@@ -162,28 +162,40 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     return tri_inv_blocked(L)
 
 
+def cho_solve(L: torch.Tensor, b: torch.Tensor, *, vec: bool) -> torch.Tensor:
+    """``(L L^T)^-1 b`` by a pair of triangular solves in the factor's dtype:
+    ``b`` is a batch of vectors (B, n) when ``vec``, else of matrices
+    (B, n, k)."""
+    b = b.to(L.dtype)
+    b2 = b.unsqueeze(-1) if vec else b
+    y = torch.linalg.solve_triangular(L, b2, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x.squeeze(-1) if vec else x
+
+
+def inv_chol_solve(Li: torch.Tensor, b: torch.Tensor, *, vec: bool) -> torch.Tensor:
+    """``Li^T (Li b)`` in the inverse factor's dtype: :func:`cho_solve` through
+    an explicit ``Li = L^-1``, as matrix products."""
+    b = b.to(Li.dtype)
+    if vec:
+        return mv(Li.transpose(-1, -2), mv(Li, b))
+    return torch.matmul(Li.transpose(-1, -2), torch.matmul(Li, b))
+
+
 def _apply_inverse(fact: Factorization, b: torch.Tensor) -> torch.Tensor:
     """``(M + delta R)^-1 b`` through the factor, honoring the equilibration
-    (``M^-1 b = d Ls^-T Ls^-1 (d b)``).  ``b`` is (B, n) or (B, n, k)."""
+    (``M^-1 b = d Ls^-T Ls^-1 (d b)``).  ``b`` is (B, n) or (B, n, k): the
+    port's tensors always carry the batch axis, so two axes are vectors."""
     vec = b.dim() == 2
     if fact.inv_chol is not None:
-        Li = fact.inv_chol
 
         def core(v):
-            v = v.to(Li.dtype)
-            if vec:
-                return mv(Li.transpose(-1, -2), mv(Li, v))
-            return torch.matmul(Li.transpose(-1, -2), torch.matmul(Li, v))
+            return inv_chol_solve(fact.inv_chol, v, vec=vec)
 
     else:
-        Lc = fact.chol
 
         def core(v):
-            v = v.to(Lc.dtype)
-            v2 = v.unsqueeze(-1) if vec else v
-            y = torch.linalg.solve_triangular(Lc, v2, upper=False)
-            x = torch.linalg.solve_triangular(Lc.transpose(-1, -2), y, upper=True)
-            return x.squeeze(-1) if vec else x
+            return cho_solve(fact.chol, v, vec=vec)
 
     if fact.scale is None:
         return core(b)

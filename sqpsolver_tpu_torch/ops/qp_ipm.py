@@ -31,8 +31,10 @@ and needs none of the JAX package's resumable micro-stepping.
 ``solve_qp.phase_seconds`` the host time spent in each (every trip starts
 with the loop's host sync, so this is wall time to within one trip).
 
-Not ported: the float32 matrix plane (``plane=True``, i.e. ``mixed_plane``),
-which raises ``NotImplementedError``.
+With ``plane=True`` on float32 factors (``kkt_precision="mixed_plane"``)
+:class:`DenseOp` runs the float32 matrix plane: every matrix product, factor
+and back-solve in float32 on Jacobi-equilibrated K and S, the compute dtype
+only in vectors and in the refinement of the whole 2x2 block.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._lanes import amax0, amin_inf, any_lane, dot, mv, select
-from .linsolve import factorize_spd, solve_factorized
+from .._lanes import amax0, amin_inf, any_lane, dot, mv, select, true_float32_matmul
+from .linsolve import cho_solve, factorize_spd, inv_chol_solve, solve_factorized, tri_inv
 
 _BIG = 1e20  # stand-in for +inf inside masked arithmetic
 
@@ -98,17 +100,16 @@ class DenseOp:
     ``A`` (B, m, n)."""
 
     def __init__(self, Q, A, opts: IpmOptions, dtype):
-        if opts.plane:
-            raise NotImplementedError(
-                "kkt_precision='mixed_plane' is not ported (ROADMAP, later-PR "
-                "list item 3, only if the H100 gives a reason)"
-            )
         self.Q = Q
         self.A = A
         self.opts = opts
         self.dtype = dtype
+        self.mixed_plane = opts.factor_dtype == "float32" and opts.plane
         self.fdtype = torch.float32 if opts.factor_dtype == "float32" else dtype
         self.ir_steps = opts.ir_steps if opts.factor_dtype == "float32" else 0
+        if self.mixed_plane:
+            self.Q32 = Q.to(torch.float32)
+            self.A32 = A.to(torch.float32)
 
     def q_mv(self, x):
         return mv(self.Q, x)
@@ -155,6 +156,9 @@ class DenseOp:
         """Assemble and factor  K = Q + diag(diag_k) + A' diag(invE) A  and the
         stiff Schur complement  S = A_t K^-1 A_t' + diag(E_t); return
         ``(solve_block, delta)``."""
+        if self.mixed_plane:
+            with true_float32_matmul():
+                return self._prepare_plane(diag_k, invE_soft, stiff, E_stiff, delta0)
         opts, dtype = self.opts, self.dtype
         Q, A = self.Q, self.A
         At = A.transpose(-1, -2)
@@ -207,6 +211,116 @@ class DenseOp:
             return dp, dy_t
 
         return solve_block, fact_K.delta
+
+    def _prepare_plane(self, diag_k, invE_soft, stiff, E_stiff, delta0):
+        """:meth:`prepare` on the float32 matrix plane.  K and S are
+        Jacobi-equilibrated (``Ks = dK K dK``, unit diagonal: a barrier
+        matrix's ill-conditioning lives mostly in its diagonal) and factored
+        with ``min_pivot=1e-3`` through ``opts.kkt_backend``; ``solve_block``
+        refines the whole 2x2 block ``max(1, ir_steps)`` times with residuals
+        in the compute dtype.  Every float32 product, here and in
+        ``solve_block``, runs with TF32 off."""
+        opts, dtype = self.opts, self.dtype
+        Q, A = self.Q, self.A
+        f32 = torch.float32
+        B, m, n = A.shape
+        zero = torch.zeros((), dtype=dtype, device=A.device)
+        A_stiff = torch.where(stiff[:, :, None], A, zero)
+        K32 = (
+            self.Q32
+            + torch.diag_embed(diag_k.to(f32))
+            + torch.matmul(self.A32.transpose(-1, -2) * invE_soft.to(f32)[:, None, :], self.A32)
+        )
+        diagK = torch.clamp_min(torch.abs(torch.diagonal(K32, dim1=-2, dim2=-1)), 1e-30)
+        dK = torch.rsqrt(diagK)
+        K32s = K32 * dK[:, :, None] * dK[:, None, :]
+        fact_K = factorize_spd(K32s, delta0.to(f32), backend=opts.kkt_backend, min_pivot=1e-3)
+        solve_Ks = _plane_solver(fact_K.chol, opts.invert_factors)
+
+        def solve_K32(b, vec):
+            # K^-1 b = dK Ks^-1 (dK b)
+            d = dK if vec else dK[:, :, None]
+            return d * solve_Ks(d * b, vec)
+
+        cap = opts.schur_cap
+        if 0 < cap < m:
+            # the capped stiff rows gathered into a compact (cap, n) block;
+            # unused slots carry a zero row and unit diagonal (their dy is 0:
+            # the rhs is stiff-masked)
+            idx = torch.argsort((~stiff).to(torch.int8), dim=-1, stable=True)[:, :cap]
+            sel = torch.gather(stiff, -1, idx)
+            A_rows = torch.gather(self.A32, -2, idx[:, :, None].expand(-1, -1, n))
+            A_st32 = torch.where(sel[:, :, None], A_rows, 0.0)
+            E_s32 = torch.where(sel, torch.gather(E_stiff, -1, idx), 1.0).to(f32)
+
+            def r2_pick(r2):
+                return torch.where(sel, torch.gather(r2, -1, idx), zero)
+
+            def dy_unpick(dy):
+                return torch.zeros((B, m), dtype=dy.dtype, device=dy.device).scatter_add(
+                    -1, idx, torch.where(sel, dy, 0.0)
+                )
+
+        else:
+            A_st32 = torch.where(stiff[:, :, None], self.A32, 0.0)
+            E_s32 = E_stiff.to(f32)
+
+            def r2_pick(r2):
+                return r2
+
+            def dy_unpick(dy):
+                return dy
+
+        KiAt32 = solve_K32(A_st32.transpose(-1, -2), vec=False)
+        S32 = torch.matmul(A_st32, KiAt32) + torch.diag_embed(E_s32)
+        dS = torch.rsqrt(torch.clamp_min(torch.abs(torch.diagonal(S32, dim1=-2, dim2=-1)), 1e-30))
+        S32s = S32 * dS[:, :, None] * dS[:, None, :]
+        fact_S = factorize_spd(S32s, 0.0, backend=opts.kkt_backend, min_pivot=1e-3)
+        solve_Ss = _plane_solver(fact_S.chol, opts.invert_factors)
+
+        def solve_S32(b):
+            return dS * solve_Ss(dS * b, True)
+
+        delta = fact_K.delta.to(dtype)
+        # the ladder added delta to the EQUILIBRATED matrix, i.e. delta *
+        # diag(K) in unscaled units: the refinement's target must match it
+        # or the sweeps diverge whenever the ladder escalates
+        diag_row = diag_k + delta[:, None] * diagK.to(dtype)
+
+        def K_mv(x):
+            # (K + delta diag(K)) x in the compute dtype
+            return mv(Q, x) + diag_row * x + mv(A.transpose(-1, -2), invE_soft * mv(A, x))
+
+        def approx_block(r1_t, r2_t):
+            t1 = solve_K32(r1_t.to(f32), vec=True)
+            dy = solve_S32(mv(A_st32, t1) - r2_pick(r2_t).to(f32))
+            dp = t1 - mv(KiAt32, dy)
+            return dp.to(dtype), dy_unpick(dy).to(dtype)
+
+        def solve_block(r1_t, r2_t):
+            """[K + delta diag(K), A_t'; A_t, -E_t] (dp; dy_t) = (r1_t; r2_t)
+            by the float32 factors, refined in the compute dtype."""
+            with true_float32_matmul():
+                dp, dy = approx_block(r1_t, r2_t)
+                for _ in range(max(1, self.ir_steps)):
+                    res1 = r1_t - (K_mv(dp) + mv(A_stiff.transpose(-1, -2), dy))
+                    res2 = r2_t - (mv(A_stiff, dp) - E_stiff * dy)
+                    ddp, ddy = approx_block(res1, res2)
+                    dp, dy = dp + ddp, dy + ddy
+            return dp, dy
+
+        return solve_block, delta
+
+
+def _plane_solver(L, invert: bool):
+    """Back-solves ``b -> (L L^T)^-1 b`` through the plane's float32 factor:
+    explicit inverse-factor products when ``invert`` (``opts.invert_factors``),
+    else triangular solves.  The returned function takes ``(b, vec)``: a batch
+    of vectors (B, n) when ``vec``, of matrices (B, n, k) otherwise."""
+    if invert:
+        Li = tri_inv(L)
+        return lambda b, vec: inv_chol_solve(Li, b, vec=vec)
+    return lambda b, vec: cho_solve(L, b, vec=vec)
 
 
 def _pos(x):

@@ -17,7 +17,7 @@ Two layouts, as in the JAX package:
 
 **The shards of one process run in turn, on one host thread, by design.**
 The solve's state is process-global: each solve sets and restores the
-global float32 matmul precision (``algorithms.sqp_tr._true_float32_matmul``;
+global float32 matmul precision (``_lanes.true_float32_matmul``;
 a second thread would switch TF32 back on in the middle of another solve),
 and the counters ``_lanes.any_lane.syncs``, ``ops.qp_ipm.solve_qp.loop_trips``
 and ``phase_seconds`` are plain globals.  So one process does not run its

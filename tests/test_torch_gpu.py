@@ -47,6 +47,10 @@ JAX it runs on its own, without the suite's JAX conftest::
 * the line search on the card: ACOPF case5 under SQP-LS, 4 load scenarios,
   against the same solve on the CPU (statuses equal and solved, objectives
   within 1e-7 relative, the kernel launched);
+* the float32 matrix plane on the card: ACOPF case5 in the slice
+  configuration under ``kkt_precision="mixed_plane"``, 4 load scenarios,
+  against the same solve on the CPU (statuses equal and solved, objectives
+  within 1e-7 relative, the kernel launched on the plane's factors);
 * the structured (BBD) path on the card is bit-reproducible: structured
   case9's coloring-compressed constraints, Jacobian and Hessian blocks
   evaluated eleven times, and two five-iteration solves (float32 factors,
@@ -262,6 +266,21 @@ def test_line_search_on_card_matches_cpu(cuda):
     nlp = acopf_polar(case)
     theta = load_scenarios(case, 4, seed=7, spread=0.03)
     solver = tp.make_solver(nlp, tp.Parameters(**SLICE, algorithm="SQP-LS"))
+    before = chol_tile.launches
+    gpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device=cuda)))
+    assert chol_tile.launches > before
+    cpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device="cpu")))
+    np.testing.assert_array_equal(gpu["status"], cpu["status"])
+    assert np.isin(gpu["status"], [0, 1, 6]).all()
+    np.testing.assert_allclose(gpu["obj_val"], cpu["obj_val"], rtol=1e-7)
+
+
+@pytest.mark.gpu
+def test_plane_on_card_matches_cpu(cuda):
+    case = load_case("case5")
+    nlp = acopf_polar(case)
+    theta = load_scenarios(case, 4, seed=7, spread=0.03)
+    solver = tp.make_batch_solver(nlp, tp.Parameters(**dict(SLICE, kkt_precision="mixed_plane")))
     before = chol_tile.launches
     gpu = tp.result_to_numpy(solver(tp.batch_data(nlp, 4, theta=theta, device=cuda)))
     assert chol_tile.launches > before
