@@ -9,6 +9,7 @@ PyTorch built for CUDA::
     python3 chip_smoke.py --paths case118   # a partial run: no closing "ok" line
     python3 chip_smoke.py --paths rect118,forms_single   # the other ACOPF formulations
     python3 chip_smoke.py --paths case30,plane_case30,plane_trip118   # the float32 matrix plane
+    python3 chip_smoke.py --paths pegase   # case118x12 (n=4128) and the other replicated networks
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -20,12 +21,13 @@ Phases (any failure raises and the exit code is non-zero):
    256x128x128, at the case118 path's diagonal blocks (16x128x128, and the
    ragged last panels 16x88x88 of K and 16x80x80 of S), at the ragged last
    panel 16x104x104 of the rectangular case118 path's capped S, at the
-   structured case118 path's panels of its Schur complement (8x128x128) and
-   at small
+   structured case118 path's panels of its Schur complement (8x128x128), at
+   one case118x12 lane's (1x128x128 and the ragged last panel 1x8x8 of its
+   11,016-row stiff Schur complement) and at small
    and odd sizes (3x1x1, 5x7x7, 32x33x33, 32x127x127) that reach every width
    the kernel is compiled for and its ragged edge: max|dL| / max|L| <= 1e-5
    and an exact-zero upper triangle; an indefinite tile must give a
-   non-finite factor on that tile only.  At the first ten shapes the
+   non-finite factor on that tile only.  At the first twelve shapes the
    kernel, the plain version and one library call
    that computes the same function (``torch.linalg.cholesky_ex``, a yardstick
    that the package's kernel path never calls) are timed with CUDA events, and
@@ -33,11 +35,12 @@ Phases (any failure raises and the exit code is non-zero):
    shape;
 4. hold the 128-panel ``cholesky_blocked`` and ``tri_inv_blocked`` at
    16x344x344 (case118's K), 16x336x336 (its capped S), 16x360x360 (the
-   capped S of rectangular case118) and 8x896x896 (the stiff Schur
-   complement of structured case118 under ``sub_batch=8``)
+   capped S of rectangular case118), 8x896x896 (the stiff Schur
+   complement of structured case118 under ``sub_batch=8``) and
+   1x11016x11016 (one case118x12 lane's, made on the card)
    against float64 ``torch.linalg.cholesky`` / the float64 inverse of the
    same matrices (max|dL| / max|L| <= 1e-5; max|L Linv - I| <= 1e-4), with
-   the kernel's launch count rising by one per 128-panel (3, 3, 3 and 7) per
+   the kernel's launch count rising by one per 128-panel (3, 3, 3, 7 and 87) per
    factorization and an indefinite matrix
    whose bad pivot lies in the third panel giving a non-finite factor on
    that lane only; time both against one library call each
@@ -161,10 +164,38 @@ Phases (any failure raises and the exit code is non-zero):
     ``solve_block`` on the captured arguments, timed between CUDA events and
     as device time under ``torch.profiler``, each result's relative error
     against a float64 LAPACK solve of the same 2x2 system and its residual
-    printed (a non-finite solve fails).
+    printed (a non-finite solve fails);
+19. pegase-scale replicated networks through the structured path
+    (``models/power.replicate_case``; ``anchor_replicated.json``, written by
+    ``scripts/torch_anchor.py --replicated``): case118x12 (1,416 buses,
+    n=4128, m=7319) must partition as in the JAX package (P=81, nd=120,
+    ns=708, 136 stiff slots a part, nS=11,016); one structured derivative
+    evaluation is timed, with its peak memory and the bus-sum incidence
+    products' share of its device time; then one lane through
+    ``make_chunked_batch_solver``: (a) the structured bench configuration
+    (phase 10's: ``mixed_ir``, ``ladder``, ``pallas``, ``qp_rescue=False``,
+    ``max_iter=100``) to the end of its float32 first pass, which factors
+    the stiff S through the kernel, ceil(nS / 128) = 87 launches per
+    factorization; (b) ``scripts/pegase_solve.py``'s parameters (float64
+    ``direct``, ``ladder``, SOC, ``qp_rescue=True``) cut at two SQP
+    iterations and held to the JAX package's iterate there (objective
+    within 1e-8, max|dx| / max|x| within 1e-6); (c) one-lane float64
+    structured solves through ``optimize``: case118x4 with
+    ``pegase_solve.py``'s parameters, in the JAX package's status within
+    1e-6 of its objective, and ten copies of case30 with
+    ``tests/test_structured.py``'s presolve-then-structured flow, as the
+    test runs it (JAX's status, solved, within the test's certificate
+    [0.98, 1.001] x 10 x case30's optimum: its float32 ``eigh`` shift sends
+    the loose presolve elsewhere in another LAPACK) and with the float64
+    ``ladder`` shift (JAX's status, within 1e-6 of its objective).  The
+    whole case118x12 solves of (a) and (b) (~15 min on the H100) are
+    ``scripts/torch_pegase_solve.py 12 --both``.  Wall, SQP iterations,
+    batched trips and host seconds per trip of each IPM phase, host syncs,
+    launches, whether the lane took the fallback and peak device memory are
+    printed.
 
 Standard output ends with these lines, in this order: the kernel's share of
-its bound and its ratio to the library call at the paths' nine shapes; the
+its bound and its ratio to the library call at the paths' eleven shapes; the
 kernels' JSON record ``{"kernels": [...]}``; the card's name and power limit
 as ``nvidia-smi`` gives them; and last ``{"ok": true, "device": {"platform":
 "gpu", "kind": ..., "count": ...}}``.  This script imports neither JAX nor
@@ -185,17 +216,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1.0e-5  # max|dL| / max|L|, float32 factors of n <= 128
 OBJ_RTOL = 1.0e-6  # per-lane objective against the JAX anchor
 INVERSE_TOL = 1.0e-4  # max|L Linv - I| of the blocked inverse, float32
-BLOCKED = ((16, 344), (16, 336), (16, 360), (8, 896))  # case118 b16's dense K and capped S; rect's capped S; structured S (sub_batch 8)
+#: the stiff Schur complement of one case118x12 lane (phase 19): P=81 parts
+#: x 136 stiff slots, 86 panels of 128 and a ragged last one of 8
+PEGASE_NS = 11016
+BLOCKED = ((16, 344), (16, 336), (16, 360), (8, 896), (1, PEGASE_NS))  # case118 b16's dense K and capped S; rect's capped S; structured S (sub_batch 8); case118x12's S
 SLICE_SHAPES = ((32, 72), (32, 96))  # K and the capped Schur S of case30 b32
 SHARDED_SHAPES = ((16, 72), (16, 96))  # the same, per shard of the two-shard case30 run
 PANEL_SHAPES = ((16, 128), (16, 88), (16, 80), (16, 104))  # case118 b16: K = 128+128+88, S = 128+128+80; rect S = 128+128+104
 STRUCTURED_PANEL = (8, 128)  # structured case118, sub_batch 8: S = 7 x 128
-TIMED = SLICE_SHAPES + SHARDED_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,)
+PEGASE_PANELS = ((1, 128), (1, PEGASE_NS % 128))  # case118x12's S, one lane: 86 x 128 + 8
+TIMED = SLICE_SHAPES + SHARDED_SHAPES + ((256, 128),) + PANEL_SHAPES + (STRUCTURED_PANEL,) + PEGASE_PANELS
 SHAPES = TIMED + ((3, 1), (5, 7), (32, 33), (32, 127))
 PATHS = ("case30", "case118", "single", "ls_case30", "structured118", "structured_single",
          "rect118", "forms_single", "sharded", "multihost", "block_sharded", "plane_case30",
-         "plane_trip118")
-# phases 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18
+         "plane_trip118", "pegase")
+# phases 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19
 #: the chunked case118 paths and their anchors
 ANCHOR_118 = {
     "case118": "anchor_case118_b16.json",
@@ -208,6 +243,14 @@ def log(*args):
     print(*args, flush=True)
 
 
+def card_line():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def spd_batch(torch, rng, batch, n):
     """Seeded SPD float32 tiles, equilibrated to a unit diagonal like the
     KKT matrices the solver factors."""
@@ -218,6 +261,18 @@ def spd_batch(torch, rng, batch, n):
     d = 1.0 / np.sqrt(np.diagonal(M, axis1=1, axis2=2))
     M = M * d[:, :, None] * d[:, None, :]
     return torch.tensor(M, dtype=torch.float32, device="cuda")
+
+
+def spd_card(torch, seed, batch, n):
+    """``spd_batch``'s construction made on the card from a seeded CUDA
+    generator, for sizes whose product the host would take a minute over."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn((batch, n, n), generator=gen, dtype=torch.float64, device="cuda")
+    M = torch.matmul(G, G.transpose(-1, -2)) / n
+    del G
+    M.diagonal(dim1=-2, dim2=-1).add_(0.05)
+    d = torch.rsqrt(M.diagonal(dim1=-2, dim2=-1))
+    return (M * d[:, :, None] * d[:, None, :]).to(torch.float32)
 
 
 def cuda_ms(torch, fn, arg, reps=30, inner=1, plug_products=3):
@@ -338,7 +393,8 @@ def check_blocked(torch, chol_blocked, card):
     rng = np.random.default_rng(20240902)
     out = {}
     for batch, n in BLOCKED:
-        M = spd_batch(torch, rng, batch, n)
+        huge = n > 4096  # case118x12's S: made on the card, timed in fewer windows
+        M = spd_card(torch, 20240903, batch, n) if huge else spd_batch(torch, rng, batch, n)
         before = chol_tile.launches
         L = cholesky_blocked(M)
         launched = chol_tile.launches - before
@@ -359,10 +415,12 @@ def check_blocked(torch, chol_blocked, card):
         if launched != panels:
             raise AssertionError(f"cholesky_blocked launched {launched} tiles at n={n}, not {panels}")
         bad = M[:4].clone()
-        bad[2, 300, 300] = -1.0e3  # a bad pivot in the third panel
+        lane = min(2, batch - 1)
+        bad[lane, 300, 300] = -1.0e3  # a bad pivot in the third panel
         finite = torch.isfinite(cholesky_blocked(bad)).flatten(1).all(-1).tolist()
-        if finite != [True, True, False, True]:
+        if finite != [i != lane for i in range(min(4, batch))]:
             raise AssertionError(f"indefinite third panel at n={n}: finite lanes {finite}")
+        del bad
         eye32 = torch.eye(n, device="cuda").expand(batch, n, n).contiguous()
 
         def solve_triangular(A):
@@ -374,14 +432,15 @@ def check_blocked(torch, chol_blocked, card):
         # products (the host then waits to enqueue, likely on the card's
         # bounded queue of pending launches), so seven panels take four calls
         big = n > 384
-        timed = dict(reps=15, inner=4 if big else 10, plug_products=60 if big else 12)
+        timed = dict(reps=5 if huge else 15, inner=2 if huge else 4 if big else 10,
+                     plug_products=60 if big else 12)
         times = {
             "cholesky_blocked_ms": cuda_ms(torch, cholesky_blocked, M, **timed),
             "cholesky_ex_ms": cuda_ms(torch, torch.linalg.cholesky_ex, M, **timed),
             "tri_inv_blocked_ms": cuda_ms(torch, tri_inv_blocked, L, **timed),
             "solve_triangular_ms": cuda_ms(torch, solve_triangular, L, **timed),
-            "cholesky_blocked_alone_ms": cuda_ms(torch, cholesky_blocked, M, reps=15),
-            "tri_inv_blocked_alone_ms": cuda_ms(torch, tri_inv_blocked, L, reps=15),
+            "cholesky_blocked_alone_ms": cuda_ms(torch, cholesky_blocked, M, reps=5 if huge else 15),
+            "tri_inv_blocked_alone_ms": cuda_ms(torch, tri_inv_blocked, L, reps=5 if huge else 15),
         }
         out[f"{batch}x{n}x{n}"] = dict(times, rel_err=rel, inverse_err=inv_err, launches=launched)
         log(f"blocked ({batch},{n},{n}) on {card}: indefinite third panel non-finite on its "
@@ -1235,6 +1294,394 @@ def run_plane_trip118(torch, record, card):
     record["plane_trip118"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 19 (``pegase``): pegase-scale replicated networks, structured path
+# ---------------------------------------------------------------------------
+
+#: the replicated networks' JAX anchors (``scripts/torch_anchor.py --replicated``)
+ANCHOR_REPLICATED = "anchor_replicated.json"
+PEGASE_K = 12  # case118x12: 1,416 buses, n=4128 (pegase-1354 scale)
+#: objective / (k x the single network's optimum): replicating the single
+#: optimum is feasible, and the ties buy at most ~2%
+#: (``tests/test_structured.py:235-237``'s certificate)
+PEGASE_BAND = (0.98, 1.0 + 1.0e-3)
+PRIM_TOL = 1.0e-6  # prim_infeas of a solved lane (the solve's tol_infeas)
+ITERATE_OBJ_RTOL = 1.0e-8  # two float64 SQP iterations against JAX's: objective
+ITERATE_X_RTOL = 1.0e-6  # ... and max|dx| / max|x|
+#: case30x10's presolve after one SQP iteration against JAX's: max|d| / max|ref|
+#: of x0 and lam0 (1.1e-9 and 8.7e-14 on a CPU; the default ``eigh`` shift's
+#: float32 rounding parts the two packages from the second iteration on)
+PRESOLVE_RTOL = 1.0e-8
+#: (b)'s iteration limit: ``pegase_solve.py``'s 40 leaves case118x12 at
+#: prim_infeas 1.1e-5 on the H100
+PEGASE_MAX_ITER = 100
+
+
+def replicated_nlp(base, k):
+    """``k`` interconnected copies of ``base`` (``models/power.replicate_case``)
+    as a one-lane polar ACOPF NLP."""
+    from sqpsolver_tpu_torch.models.acopf import acopf_polar
+    from sqpsolver_tpu_torch.models.matpower import load_case
+    from sqpsolver_tpu_torch.models.power import case9, replicate_case
+
+    case = replicate_case(case9() if base == "case9" else load_case(base), k)
+    return case, acopf_polar(case, scenario_batchable=False)
+
+
+def block_partition(nlp, kkt_parts=0):
+    """The block structure ``make_solver`` builds for ``nlp`` (the same call):
+    a summary (P, nd, ns, the per-part stiff cap, the stiff Schur size
+    nS = P x cap, the coloring widths and the host seconds of the build) and
+    the structure itself."""
+    import numpy as np
+
+    from sqpsolver_tpu_torch.ops.kkt_bbd import part_schur_cap
+    from sqpsolver_tpu_torch.structure import build_block_structure
+
+    g_l, g_u = np.asarray(nlp.g_l, dtype=np.float64), np.asarray(nlp.g_u, dtype=np.float64)
+    t0 = time.perf_counter()
+    bs = build_block_structure(nlp.n, nlp.m, nlp.structure, np.isfinite(g_l) & (g_l == g_u),
+                               n_parts=kkt_parts or None)
+    seconds = time.perf_counter() - t0
+    cap = part_schur_cap(bs)
+    return dict(P=bs.P, nd=bs.nd, ns=bs.ns, cap_p=cap, nS=bs.P * cap,
+                nJ=int(bs.colorJ.max()) + 1, nH=int(bs.colorH.max()) + 1,
+                seconds=seconds), bs
+
+
+def panel_launches(nS):
+    """``chol_tile`` launches of one ``cholesky_blocked`` factorization of an
+    nS-row matrix: one per 128-panel."""
+    return -(-nS // 128)
+
+
+def lane_failures(tag, status, prim):
+    """A lane that must end solved: status 0, 1 or 6 and ``prim_infeas`` at
+    most ``PRIM_TOL``."""
+    if status in (0, 1, 6) and prim <= PRIM_TOL:
+        return []
+    return [f"{tag}: status {status}, prim_infeas {prim:.3e} (solved: status 0/1/6 and "
+            f"prim_infeas <= {PRIM_TOL:g})"]
+
+
+def band_failures(tag, obj, k, single):
+    """The objective must lie in ``PEGASE_BAND`` x k x the single optimum."""
+    ratio = obj / (k * single)
+    if PEGASE_BAND[0] <= ratio <= PEGASE_BAND[1]:
+        return []
+    return [f"{tag}: objective {obj:.10g} is {ratio:.6f} of {k} x {single}, outside "
+            f"[{PEGASE_BAND[0]}, {PEGASE_BAND[1]}]"]
+
+
+def anchor_failures(tag, status, obj, want):
+    """End in the JAX anchor's status, within ``OBJ_RTOL`` of its objective."""
+    rel = abs(obj - want["obj"]) / max(1.0, abs(want["obj"]))
+    if status == want["status"] and rel <= OBJ_RTOL:
+        return []
+    return [f"{tag}: status {status} objective {obj:.10g}, JAX {want['status']} "
+            f"{want['obj']:.10g} (rel. {rel:.3e}, tol {OBJ_RTOL:g})"]
+
+
+def rel_gap(got, ref):
+    """max|got - ref| / max|ref| of two vectors."""
+    import numpy as np
+
+    ref = np.asarray(ref)
+    return float(np.max(np.abs(np.asarray(got) - ref)) / np.max(np.abs(ref)))
+
+
+def iterate_gap(obj, x, want):
+    """(objective rel. difference, max|dx| / max|x|) of an iterate against
+    the JAX package's record ``want``."""
+    rel_obj = abs(obj - want["obj"]) / max(1.0, abs(want["obj"]))
+    return rel_obj, rel_gap(x, want["x"])
+
+
+def presolve_failures(tag, x0, lam0, want):
+    """A presolve's warm start against the JAX package's: x0 and lam0 each
+    within ``PRESOLVE_RTOL`` (max|d| / max|ref|).  Returns the failures and
+    the two gaps."""
+    gaps = dict(x=rel_gap(x0, want["x"]), lam=rel_gap(lam0, want["lam"]))
+    return [f"{tag}: {key} max|d|/max|ref| {gap:.3e} (tol {PRESOLVE_RTOL:g})"
+            for key, gap in gaps.items() if not gap <= PRESOLVE_RTOL], gaps
+
+
+def iterate_failures(tag, obj, x, want):
+    """An iterate against the JAX package's at the same SQP iteration:
+    objective within ``ITERATE_OBJ_RTOL``, max|dx| / max|x| within
+    ``ITERATE_X_RTOL``."""
+    rel_obj, rel_x = iterate_gap(obj, x, want)
+    if rel_obj <= ITERATE_OBJ_RTOL and rel_x <= ITERATE_X_RTOL:
+        return []
+    return [f"{tag}: objective rel. {rel_obj:.3e} (tol {ITERATE_OBJ_RTOL:g}), max|dx|/max|x| "
+            f"{rel_x:.3e} (tol {ITERATE_X_RTOL:g}) against the JAX iterate"]
+
+
+def launch_failures(tag, launches, calls, nS):
+    """The kernel path: launches > 0, and ``panel_launches(nS)`` per
+    factorization."""
+    per = panel_launches(nS)
+    if launches > 0 and launches == calls * per:
+        return []
+    return [f"{tag}: {launches} chol_tile launches over {calls} factorizations of S "
+            f"({nS} rows): not a positive {per} per factorization"]
+
+
+def agree_failures(tag, obj_a, obj_b):
+    """Two solves of one instance: objectives within ``OBJ_RTOL``."""
+    rel = abs(obj_a - obj_b) / max(1.0, abs(obj_b))
+    return [] if rel <= OBJ_RTOL else [f"{tag}: objectives {obj_a:.10g} and {obj_b:.10g} "
+                                       f"differ by {rel:.3e} (tol {OBJ_RTOL:g})"]
+
+
+def pegase_lane(torch, nlp, params_kw, device="cuda", out=log, tag="pegase", progress=None,
+                rescue_fallback=True):
+    """One lane of ``nlp`` through ``make_chunked_batch_solver`` on
+    ``device``, as ``scripts/pegase_solve.py`` drives the chip; every
+    counter is read around the solve (``progress``: the solver's per-round
+    log).  Returns the lane's result and the counts."""
+    import resource
+
+    from sqpsolver_tpu_torch import Parameters, batch_data, make_chunked_batch_solver
+    from sqpsolver_tpu_torch._lanes import any_lane
+    from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, cholesky_blocked
+    from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
+
+    card = torch.device(device).type == "cuda"
+    params = Parameters(**params_kw)
+    t0 = time.perf_counter()
+    solver = make_chunked_batch_solver(nlp, params, rescue_fallback=rescue_fallback, log=progress)
+    build_s = time.perf_counter() - t0
+    data = batch_data(nlp, 1, device=device)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    chol_tile.launches = 0
+    calls0, syncs0 = cholesky_blocked.calls, any_lane.syncs
+    trips0, secs0 = dict(solve_qp.loop_trips), dict(solve_qp.phase_seconds)
+    t0 = time.perf_counter()
+    res = solver(data)
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = dict(solver.stats)
+    trips = {p: solve_qp.loop_trips[p] - trips0[p] for p in trips0}
+    secs = {p: solve_qp.phase_seconds[p] - secs0[p] for p in secs0}
+    rounds = stats["rounds"] + stats["fallback_rounds"]
+    r = dict(
+        status=int(res.status[0]), iterations=int(res.iterations[0]),
+        obj=float(res.obj_val[0]), prim=float(res.prim_infeas[0]),
+        x=res.x[0].cpu().numpy(), x_finite=bool(torch.isfinite(res.x).all()),
+        qp_trips=int(res.qp_iters_total[0]), wall=wall, build_s=build_s,
+        trips=trips, secs=secs, rounds=rounds, syncs=any_lane.syncs - syncs0 + rounds,
+        launches=chol_tile.launches, calls=cholesky_blocked.calls - calls0,
+        fallback=bool(stats["fallback_lanes"]),
+        peak_gb=torch.cuda.max_memory_allocated() / 2**30 if card else None,
+        rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+    )
+    per_trip = {p: secs[p] / trips[p] if trips[p] else 0.0 for p in secs}
+    out(f"{tag}: status {r['status']} obj {r['obj']:.10g} in {r['iterations']} SQP iterations "
+        f"({r['qp_trips']} QP trips), inf_pr {r['prim']:.3e}, wall {wall:.3f} s (solver built "
+        f"in {build_s:.3f} s); batched IPM trips phase 1 {trips[1]} ({per_trip[1] * 1e3:.1f} ms "
+        f"of host time each), phase 2 {trips[2]} ({per_trip[2] * 1e3:.1f} ms each); "
+        f"{r['syncs']} host syncs ({rounds} rounds); {r['launches']} chol_tile launches over "
+        f"{r['calls']} kernel-route factorizations; fallback {'taken' if r['fallback'] else 'not taken'}; "
+        f"peak device memory "
+        + (f"{r['peak_gb']:.3f} GiB" if card else "not measured (CPU run)")
+        + f", peak host RSS {r['rss_gb']:.3f} GiB")
+    return r
+
+
+#: the profiler's matrix-product ops: where a bus-sum incidence product runs
+MATRIX_PRODUCT_OPS = ("aten::mm", "aten::mv", "aten::matmul", "aten::addmm", "aten::bmm")
+
+
+def incidence_product(name, shapes, nb, widths):
+    """Whether a profiler op is a bus-sum incidence product: a matrix
+    product with an (nb, w) operand, or its transpose, for a ``w`` of
+    ``widths`` (the generator and branch counts)."""
+    pairs = {tuple(sorted((nb, w))) for w in widths}
+    return name in MATRIX_PRODUCT_OPS and any(
+        len(sh) >= 2 and tuple(sorted(sh[-2:])) in pairs for sh in shapes or [])
+
+
+def derivative_probe(torch, nlp, case, part, bs):
+    """One structured derivative evaluation at the start point on the card:
+    its time (CUDA events), peak device memory, and the share of its device
+    time spent in the bus-sum incidence products (``torch.profiler``: the
+    matrix products that take an (nb, ng) or (nb, nl) incidence matrix,
+    ``incidence_product``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sqpsolver_tpu_torch.algorithms.sqp_tr import structured_derivatives
+    from sqpsolver_tpu_torch.ops.kkt_bbd import BlockMaps
+    from sqpsolver_tpu_torch.parallel.batch import batch_data
+
+    maps = BlockMaps(bs, torch.device("cuda"))
+    data = batch_data(nlp, 1)
+    lam = torch.zeros((1, nlp.m), dtype=data.x0.dtype, device="cuda")
+
+    def once():
+        return structured_derivatives(nlp, maps, data.x0, lam, data.theta)
+
+    once()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    once()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        once()
+        torch.cuda.synchronize()
+    total = inc = 0.0
+    widths = (len(case.gen_bus), len(case.br_f))
+    for avg in prof.key_averages(group_by_input_shape=True):
+        dev = getattr(avg, "self_device_time_total", None)
+        dev = avg.self_cuda_time_total if dev is None else dev
+        total += dev
+        if incidence_product(avg.key, avg.input_shapes, case.nb, widths):
+            inc += dev
+    share = inc / total if total else None
+    log(f"pegase: structured derivatives at n={nlp.n}: nJ={part['nJ']} JVPs and "
+        f"nH={part['nH']} forward-over-reverse HVPs per lane, {ms:.3f} ms (CUDA events), "
+        f"peak device memory above the inputs {peak_gb:.3f} GiB; bus-sum incidence products "
+        + (f"{share:.2%} of its device time ({inc / 1e3:.3f} of {total / 1e3:.3f} ms)"
+           if share is not None else "not measured (the profiler saw no device time)"))
+    return dict(ms=ms, peak_gb=peak_gb, incidence_share=share)
+
+
+def pegase_full(torch, nlp, k, anchor, out=log, progress=None):
+    """The whole solves of one replicated case118 lane on the card: (a) the
+    kernel path (the structured bench configuration, rescue fallback on) and
+    (b) ``pegase_solve.py``'s parameters at ``PEGASE_MAX_ITER``.  Returns
+    both results and the failures of their gates: each solved, within
+    ``PEGASE_BAND``, the two within ``OBJ_RTOL`` of each other, and the
+    kernel at ``panel_launches(nS)`` per factorization."""
+    from sqpsolver_tpu_torch.models.matpower import VENDORED_OPTIMA
+
+    single = VENDORED_OPTIMA["case118"]
+    nS = block_partition(nlp)[0]["nS"]
+    a = pegase_lane(torch, nlp, anchor["bench_params"], out=out, progress=progress,
+                    tag=f"case118x{k} (a) kernel path")
+    b = pegase_lane(torch, nlp, dict(anchor["pegase_params"], max_iter=PEGASE_MAX_ITER), out=out,
+                    progress=progress, tag=f"case118x{k} (b) pegase_solve.py parameters")
+    failures = launch_failures("(a)", a["launches"], a["calls"], nS)
+    for tag, r in (("(a)", a), ("(b)", b)):
+        failures += lane_failures(tag, r["status"], r["prim"])
+        failures += band_failures(tag, r["obj"], k, single)
+        if not r["x_finite"]:
+            failures.append(f"{tag}: x is not finite")
+    failures += agree_failures("(a) and (b)", a["obj"], b["obj"])
+    out(f"case118x{k}: band ratios (obj / {k} x {single}): (a) {a['obj'] / (k * single):.6f}, "
+        f"(b) {b['obj'] / (k * single):.6f} (band {PEGASE_BAND}); (a) and (b) rel. "
+        f"{abs(a['obj'] - b['obj']) / abs(b['obj']):.3e} (tol {OBJ_RTOL:g})")
+    return a, b, failures
+
+
+def run_pegase(torch, record):
+    """Phase 19: pegase-scale replicated networks through the structured path
+    on the card, held to the JAX package (``anchor_replicated.json``).  The
+    whole solves of case118x12 (``pegase_full``, ~15 min on the H100) do not
+    fit this script's time limit beside the other paths: they are
+    ``scripts/torch_pegase_solve.py 12 --both``; here the kernel path runs
+    its float32 first pass."""
+    import sqpsolver_tpu_torch as tp
+    from sqpsolver_tpu_torch.models.matpower import VENDORED_OPTIMA
+    from sqpsolver_tpu_torch.utils.warmstart import presolve_start
+
+    anchor = _anchor(ANCHOR_REPLICATED)
+    t_phase = time.perf_counter()
+    case, nlp = replicated_nlp("case118", PEGASE_K)
+    part, bs = block_partition(nlp)
+    want = anchor["structure"][f"case118x{PEGASE_K}"]
+    log(f"pegase: {case.name} ({case.nb} buses, n={nlp.n}, m={nlp.m}): P={part['P']} parts of "
+        f"nd={part['nd']}, separator ns={part['ns']}, stiff cap {part['cap_p']} per part, "
+        f"stiff Schur nS={part['nS']} ({panel_launches(part['nS'])} panels), nJ={part['nJ']}, "
+        f"nH={part['nH']}, structure built in {part['seconds']:.3f} s on the host; JAX: "
+        f"P={want['P']} nd={want['nd']} ns={want['ns']} cap {want['cap_p']} nS={want['nS']}")
+    failures = [f"partition: {key} {part[key]} against JAX's {want[key]}"
+                for key in ("P", "nd", "ns", "cap_p", "nS", "nJ", "nH") if part[key] != want[key]]
+    if part["nS"] != PEGASE_NS:
+        failures.append(f"partition: nS {part['nS']}, phases 3-4 time {PEGASE_NS}")
+    derivative_probe(torch, nlp, case, part, bs)
+
+    # (a) the kernel path's float32 first pass: chol_tile on the stiff S
+    a = pegase_lane(torch, nlp, anchor["bench_params"], rescue_fallback=False,
+                    tag="pegase (a) kernel path, first pass")
+    record["launches"] += a["launches"]
+    record["launches_by_path"][f"pegase_x{PEGASE_K}"] = a["launches"]
+    record["launches_per_factorization"]["pegase"] = a["launches"] / max(a["calls"], 1)
+    failures += launch_failures("(a)", a["launches"], a["calls"], part["nS"])
+    if not a["x_finite"]:
+        failures.append("(a): x is not finite")
+
+    # (b) scripts/pegase_solve.py's parameters, two SQP iterations, against
+    # the JAX package's iterate
+    want2 = anchor[f"case118x{PEGASE_K}_iter2"]
+    b2 = pegase_lane(torch, nlp, dict(anchor["pegase_params"], max_iter=2),
+                     tag="pegase (b) two iterations")
+    failures += iterate_failures("(b) two iterations", b2["obj"], b2["x"], want2)
+    rel2, dx2 = iterate_gap(b2["obj"], b2["x"], want2)
+    log(f"pegase: (b) after two iterations: objective {b2['obj']:.12g} against JAX's "
+        f"{want2['obj']:.12g} (rel. {rel2:.3e}, tol {ITERATE_OBJ_RTOL:g}), max|dx|/max|x| "
+        f"{dx2:.3e} (tol {ITERATE_X_RTOL:g}); JAX took {want2['seconds_with_compile']} s on the CPU")
+
+    # (c) one-lane float64 structured solves through optimize
+    _, nlp4 = replicated_nlp("case118", 4)
+    res = tp.optimize(nlp4, tp.Parameters(**anchor["pegase_params"]))
+    w4 = anchor["case118x4"]
+    log(f"pegase: (c) case118x4 (n={nlp4.n}): {res.status_name} obj {res.obj_val:.10g} in "
+        f"{res.iterations} iterations ({res.qp_iters_total} QP trips), inf_pr "
+        f"{res.prim_infeas:.3e}, wall {res.solve_time:.3f} s; JAX "
+        f"{tp.status_name(w4['status'])} {w4['obj']:.10g} in {w4['iterations']} iterations "
+        f"({w4['seconds_with_compile']} s on the CPU)")
+    failures += anchor_failures("(c) case118x4", int(res.status), res.obj_val, w4)
+    # ten copies of case30, presolve then structured: the test's flow (the
+    # default eigh shift, whose float32 eigenvalue estimate rounds
+    # differently in another LAPACK, so the loose presolve stops elsewhere:
+    # held to the test's own certificate) and with the float64 ladder shift
+    # (held to JAX's objective)
+    case30x10, nlp30 = replicated_nlp("case30", 10)
+    # the test's flow where the two packages still agree: its presolve's
+    # first iterate
+    first = presolve_start(nlp30, tp.Parameters(**anchor["case30x10_params"]), max_iter=1)
+    bad, gaps = presolve_failures("(c) case30x10 presolve, first iterate",
+                                  first.x0[0].cpu().numpy(), first.lam0[0].cpu().numpy(),
+                                  anchor["case30x10_presolve1"])
+    failures += bad
+    log(f"pegase: (c) case30x10 presolve after one SQP iteration against JAX's: max|dx|/max|x| "
+        f"{gaps['x']:.3e}, max|dlam|/max|lam| {gaps['lam']:.3e} (tol {PRESOLVE_RTOL:g})")
+    for name, shift in (("case30x10", {}), ("case30x10_ladder", {"hessian_shift": "ladder"})):
+        params = tp.Parameters(**dict(anchor["case30x10_params"], **shift))
+        t0 = time.perf_counter()
+        warm = presolve_start(nlp30, params)
+        raw = tp.make_solver(nlp30, params.replace(kkt_structured=True))(warm)
+        torch.cuda.synchronize()
+        res = tp.from_raw(raw, time.perf_counter() - t0)
+        want = anchor[name]
+        rel = abs(res.obj_val - want["obj"]) / abs(want["obj"])
+        log(f"pegase: (c) {name} ({case30x10.nb} buses, n={nlp30.n}), presolve then "
+            f"structured: {res.status_name} obj {res.obj_val:.10g} in {res.iterations} iterations, "
+            f"inf_pr {res.prim_infeas:.3e}, wall {res.solve_time:.3f} s; JAX "
+            f"{tp.status_name(want['status'])} {want['obj']:.10g} in {want['iterations']} "
+            f"iterations ({want['seconds_with_compile']} s on the CPU), rel. {rel:.3e}")
+        if shift:
+            failures += anchor_failures(f"(c) {name}", int(res.status), res.obj_val, want)
+        else:
+            if int(res.status) != want["status"]:
+                failures.append(f"(c) {name}: status {int(res.status)}, JAX {want['status']}")
+            failures += lane_failures(f"(c) {name}", int(res.status), res.prim_infeas)
+            failures += band_failures(f"(c) {name}", res.obj_val, 10, VENDORED_OPTIMA["case30"])
+    log(f"pegase: phase 19 in {time.perf_counter() - t_phase:.3f} s")
+    if failures:
+        raise AssertionError("pegase: " + "; ".join(failures))
+
 def profile_case118(torch, max_iter, out_path):
     """Phase 7 for case118: the path cut to ``max_iter`` SQP iterations (a
     whole solve is millions of device events), once plain and once under the
@@ -1338,10 +1785,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1392,7 +1836,9 @@ def main() -> int:
         run_plane_case30(torch, record, card, wall_ir)
     if "plane_trip118" in paths:
         run_plane_trip118(torch, record, card)
-    for batch, n in SLICE_SHAPES + SHARDED_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,):
+    if "pegase" in paths:
+        run_pegase(torch, record)
+    for batch, n in SLICE_SHAPES + SHARDED_SHAPES + PANEL_SHAPES + (STRUCTURED_PANEL,) + PEGASE_PANELS:
         t = record["timings"][f"{batch}x{n}x{n}"]
         log(f"chol_tile ({batch},{n},{n}) on {card}: {t['bound_ms'] / t['ms']:.2%} of "
             f"its bound, {t['ms'] / t['library_ms']:.3f} of the library call's time")

@@ -79,6 +79,22 @@ cannot drift apart.
   these float32-factor solves the two routes' rounding alone moves lanes'
   iteration counts).
 
+* ``--replicated``: interconnected copies of a real network
+  (``models/power.replicate_case``), the pegase-scale configuration of
+  ``scripts/pegase_solve.py``: the block-structure summaries of case118 x4,
+  x12 and x24 (P, nd, ns, the per-part stiff cap, the Schur size and hashes
+  of the part assignment and colorings); case118x4 solved through
+  ``optimize`` with that script's parameters; case118x12 stopped after two
+  SQP iterations (status, objective, ``x``); ten copies of case30 through
+  ``tests/test_structured.py``'s presolve-then-structured flow, as the test
+  runs it and with the float64 ``ladder`` shift, and its presolve's
+  first iterate (``x0`` / ``lam0`` after one SQP iteration); and three
+  copies of case9 under the script's parameters and under the structured
+  bench configuration (``mixed_ir`` on ``xla``).  Each piece also records
+  its JAX wall.  ``--only NAME[,NAME]`` runs the named pieces and merges
+  them into the existing file (``REPLICATED_PIECES``).  Written to
+  ``anchor_replicated.json``.
+
 Usage::
 
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py [--case C] [--batch B]
@@ -92,6 +108,8 @@ Usage::
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --multiprocess [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --plane [--single]
         [--case C] [--batch B] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --replicated
+        [--only NAME[,NAME]] [--out PATH]
 
 The reference's factorization backend defaults to the path's own,
 ``kkt_backend="pallas"``: on the CPU the JAX Cholesky kernel runs in
@@ -530,6 +548,140 @@ def _solve_one(task) -> dict:
     return result_record(sqp.optimize(nlp, sqp.Parameters(**kw)))
 
 
+#: ``--replicated``: ``scripts/pegase_solve.py``'s parameters (``max_iter`` 40
+#: there; float64 ``direct`` factors, ``qp_rescue`` on: the defaults)
+PEGASE_PARAMS = dict(_ACOPF_TOL, max_iter=40, use_soc=True, kkt_structured=True,
+                     hessian_shift="ladder", init_projection="off")
+#: ``tests/test_structured.py::test_structured_case30x10_300bus``'s parameters
+#: (the presolve runs them dense, the solve adds ``kkt_structured``)
+CASE30X10_PARAMS = dict(_ACOPF_TOL, max_iter=200, use_soc=True)
+#: the structured bench configuration (``bench.py`` with
+#: ``SQP_BENCH_STRUCTURED=1``; the kernel backend): ``chip_smoke.py``'s kernel
+#: path on case118x12
+BENCH_STRUCTURED_PARAMS = dict(PARAMS, max_iter=100, kkt_structured=True)
+#: the small network of the CPU test, and its second configuration: the
+#: structured bench's on the library route
+SMALL = dict(case="case9", k=3)
+SMALL_MIXED_PARAMS = dict(BENCH_STRUCTURED_PARAMS, kkt_backend="xla")
+#: the piece names of ``--replicated --only``
+REPLICATED_PIECES = ("structure", "small", "case30x10", "case30x10_ladder",
+                     "case30x10_presolve1", "case118x4", "case118x12_iter2")
+
+
+def replicated_case(base: str, k: int):
+    """``k`` interconnected copies of ``base``, by the JAX package."""
+    from sqpsolver_tpu.models.matpower import load_case
+    from sqpsolver_tpu.models.power import case9, replicate_case
+
+    return replicate_case(case9() if base == "case9" else load_case(base), k)
+
+
+def structure_summary(nlp, bs, cap: int) -> dict:
+    """What the port's block structure must equal: sizes, the stiff cap and
+    Schur size, and SHA-256 hashes of the assignment and colorings."""
+    import hashlib
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(np.asarray(a, dtype=np.int64)).tobytes()).hexdigest()
+
+    return dict(n=int(nlp.n), m=int(nlp.m), P=int(bs.P), nd=int(bs.nd), ns=int(bs.ns),
+                mr=int(bs.mr), mre=int(bs.mre), cap_p=int(cap), nS=int(bs.P * cap),
+                nJ=int(np.max(bs.colorJ)) + 1, nH=int(np.max(bs.colorH)) + 1,
+                var_part=digest(bs.var_part), var_slot=digest(bs.var_slot),
+                sep_idx=digest(bs.sep_idx), colorJ=digest(bs.colorJ),
+                colorH=digest(bs.colorH))
+
+
+def run_replicated(out_path: str, only: list[str]) -> None:
+    """``--replicated``: the pegase-scale anchors, merged piece by piece."""
+    import sqpsolver_tpu as sqp
+    from sqpsolver_tpu import results as _results
+    from sqpsolver_tpu.models.acopf import acopf_polar
+    from sqpsolver_tpu.ops.kkt_bbd import part_schur_cap
+    from sqpsolver_tpu.structure import build_block_structure
+    from sqpsolver_tpu.utils.warmstart import presolve_start
+
+    record = dict(reference=_reference(), pegase_params=PEGASE_PARAMS,
+                  bench_params=BENCH_STRUCTURED_PARAMS,
+                  case30x10_params=CASE30X10_PARAMS, small=SMALL,
+                  small_mixed_params=SMALL_MIXED_PARAMS)
+    t0 = time.time()
+
+    def log(msg):
+        print(f"[{time.time() - t0:7.1f}s] {msg}", file=sys.stderr, flush=True)
+
+    def save():
+        # merged into the file as it is now, so that pieces run by
+        # separate processes keep each other's results
+        merged = {}
+        if os.path.exists(out_path):
+            with open(out_path) as fh:
+                merged = json.load(fh)
+        merged.update(record)
+        with open(out_path, "w") as fh:
+            json.dump(merged, fh, indent=1)
+            fh.write("\n")
+
+    def solve(nlp, kw):
+        t1 = time.time()
+        rec = result_record(sqp.optimize(nlp, sqp.Parameters(**kw)))
+        rec["seconds_with_compile"] = round(time.time() - t1, 1)
+        return rec
+
+    def nlp_of(base, k):
+        return acopf_polar(replicated_case(base, k), scenario_batchable=False)
+
+    for piece in only:
+        if piece == "structure":
+            summ = {}
+            for k in (4, 12, 24):
+                nlp = nlp_of("case118", k)
+                g_l, g_u = np.asarray(nlp.g_l), np.asarray(nlp.g_u)
+                t1 = time.time()
+                bs = build_block_structure(nlp.n, nlp.m, nlp.structure,
+                                           np.isfinite(g_l) & (g_l == g_u))
+                summ[f"case118x{k}"] = dict(structure_summary(nlp, bs, part_schur_cap(bs)),
+                                            seconds=round(time.time() - t1, 3))
+            record["structure"] = summ
+        elif piece == "small":
+            nlp = nlp_of(SMALL["case"], SMALL["k"])
+            record["small_solves"] = dict(pegase=solve(nlp, PEGASE_PARAMS),
+                                          mixed=solve(nlp, SMALL_MIXED_PARAMS))
+        elif piece in ("case30x10", "case30x10_ladder"):
+            # the test's flow, and the same with the float64 ladder shift:
+            # the default shift's float32 eigenvalue estimate rounds
+            # differently in another LAPACK, and the loose presolve stops
+            # at another point
+            nlp = nlp_of("case30", 10)
+            params = sqp.Parameters(**CASE30X10_PARAMS)
+            if piece == "case30x10_ladder":
+                params = params.replace(hessian_shift="ladder")
+            t1 = time.time()
+            warm = presolve_start(nlp, params)
+            solver = sqp.make_solver(nlp, params.replace(kkt_structured=True))
+            rec = result_record(_results.from_raw(solver(warm), 0.0))
+            rec["seconds_with_compile"] = round(time.time() - t1, 1)
+            record[piece] = rec
+        elif piece == "case30x10_presolve1":
+            # the test's presolve stopped after one SQP iteration: the point
+            # where the two packages still agree under the default shift
+            nlp = nlp_of("case30", 10)
+            t1 = time.time()
+            warm = presolve_start(nlp, sqp.Parameters(**CASE30X10_PARAMS), max_iter=1)
+            record[piece] = dict(x=[float(v) for v in np.asarray(warm.x0)],
+                                 lam=[float(v) for v in np.asarray(warm.lam0)],
+                                 seconds_with_compile=round(time.time() - t1, 1))
+        elif piece == "case118x4":
+            record["case118x4"] = solve(nlp_of("case118", 4), PEGASE_PARAMS)
+        elif piece == "case118x12_iter2":
+            record["case118x12_iter2"] = solve(nlp_of("case118", 12),
+                                               dict(PEGASE_PARAMS, max_iter=2))
+        else:
+            raise SystemExit(f"--only: unknown piece {piece!r}; one of {REPLICATED_PIECES}")
+        log(f"{piece} done")
+        save()
+
+
 def run_hs(out_path: str) -> None:
     """``--hs``: the single-NLP anchors (see the module docstring).  Each
     solve compiles its own program; XLA:CPU runs out of code memory after
@@ -596,6 +748,12 @@ def main() -> None:
     ap.add_argument("--plane", action="store_true",
                     help="the float32 matrix plane (kkt_precision='mixed_plane'); with "
                          "--single the one-lane anchors (anchor_plane_single.json)")
+    ap.add_argument("--replicated", action="store_true",
+                    help="write the pegase-scale replicated-network anchors "
+                         "(anchor_replicated.json) instead")
+    ap.add_argument("--only", default=None,
+                    help="with --replicated: comma-separated pieces to run and merge "
+                         f"(default all: {','.join(REPLICATED_PIECES)})")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--max-iter", type=int, default=None,
                     help=f"default {PARAMS['max_iter']}; 100 for structured case118")
@@ -627,6 +785,8 @@ def main() -> None:
         name = "anchor_multiprocess_case9_b4.json"
     elif args.hs:
         name = "anchor_hs.json"
+    elif args.replicated:
+        name = "anchor_replicated.json"
     elif args.single:
         name = "anchor_plane_single.json" if args.plane else "anchor_structured_single.json"
     out_path = args.out or os.path.join(DATA, name)
@@ -651,6 +811,9 @@ def main() -> None:
     jax.config.update("jax_enable_x64", True)
     if args.hs:
         run_hs(out_path)
+        return
+    if args.replicated:
+        run_replicated(out_path, args.only.split(",") if args.only else list(REPLICATED_PIECES))
         return
     if args.single:
         (run_plane_single if args.plane else run_structured_single)(out_path)

@@ -376,13 +376,15 @@ class BlockMaps:
         )
 
     # ----------------------------------------------------------- matvecs --
+    # Each matvec takes (B, n[, k]) or (B, m[, k]): a panel of k columns is
+    # one batched product per block, never a per-column copy of the blocks.
     def h_mv(self, H: HessBlocks, x):
         x_p, x_s = self.to_blocks(x)
-        y_p = torch.einsum("bpij,bpj->bpi", H.H_pp, x_p) + torch.einsum(
-            "bpis,bs->bpi", H.H_ps, x_s
+        y_p = torch.einsum("bpij,bpj...->bpi...", H.H_pp, x_p) + torch.einsum(
+            "bpis,bs...->bpi...", H.H_ps, x_s
         )
-        y_s = torch.einsum("bpis,bpi->bs", H.H_ps, x_p) + torch.einsum(
-            "bst,bt->bs", H.H_ss, x_s
+        y_s = torch.einsum("bpis,bpi...->bs...", H.H_ps, x_p) + torch.einsum(
+            "bst,bt...->bs...", H.H_ss, x_s
         )
         return self.from_blocks(y_p, y_s)
 
@@ -402,15 +404,15 @@ class BlockMaps:
 
     def j_mv(self, J: JacBlocks, x):
         x_p, x_s = self.to_blocks(x)
-        y = torch.einsum("bprk,bpk->bpr", J.A_int, x_p) + torch.einsum(
-            "bprs,bs->bpr", J.A_sep, x_s
+        y = torch.einsum("bprk,bpk...->bpr...", J.A_int, x_p) + torch.einsum(
+            "bprs,bs...->bpr...", J.A_sep, x_s
         )
         return self.rows_scatter(y)
 
     def j_rmv(self, J: JacBlocks, y):
         y_p = self.rows_gather(y)
-        x_p = torch.einsum("bprk,bpr->bpk", J.A_int, y_p)
-        x_s = torch.einsum("bprs,bpr->bs", J.A_sep, y_p)
+        x_p = torch.einsum("bprk,bpr...->bpk...", J.A_int, y_p)
+        x_s = torch.einsum("bprs,bpr...->bs...", J.A_sep, y_p)
         return self.from_blocks(x_p, x_s)
 
     def j_row_norms(self, J: JacBlocks):
@@ -430,6 +432,12 @@ def part_schur_cap(bs) -> int:
     The Schur block is (P * part_schur_cap, P * part_schur_cap)."""
     hp = max(8, (bs.mr - bs.mre + 3) // 4)
     return min(bs.mr, ((bs.mre + hp + 7) // 8) * 8)
+
+
+#: the most elements of interior Hessian block copies that ``K_mv`` mapped
+#: over a panel may make (one copy a column; 8 GiB in float64): a wider panel
+#: goes through block products (``BbdOperator.prepare``)
+MAPPED_PANEL_ELEMS = 2**30
 
 
 def _smallest(key, k):
@@ -553,11 +561,22 @@ class BbdOperator:
         kdiag = diag_k + delta64[:, None] * diagK
 
         def K_mv(x):
-            """Exact (K + delta diag(K)) x in the compute dtype."""
+            """Exact (K + delta diag(K)) x in the compute dtype, x (B, n)."""
             return q_mv(x) + kdiag * x + a_rmv(invE_soft * a_mv(x))
 
-        # (B, n, k) column by column through the block matvecs
-        K_mv_panel = torch.func.vmap(K_mv, in_dims=2, out_dims=2)
+        def K_mv_panel(X):
+            """The same on a panel X (B, n, k).  ``K_mv`` mapped over the k
+            columns (``torch.func.vmap``) copies the interior Hessian blocks
+            k times; where those copies would pass ``MAPPED_PANEL_ELEMS``
+            (12.8e9 elements at case118x12's k = 11016) the panel goes
+            through one block product per term instead.  The choice follows
+            the shapes alone.  The two forms round differently, and the
+            float32-factor paths' iteration counts follow that rounding (the
+            mapped form's are JAX's, which maps the same matvec), so the
+            smaller panels keep the mapped form."""
+            if X.shape[-1] * self.H.H_pp.numel() <= MAPPED_PANEL_ELEMS:
+                return torch.func.vmap(K_mv, in_dims=2, out_dims=2)(X)
+            return q_mv(X) + kdiag[..., None] * X + a_rmv(invE_soft[..., None] * a_mv(X))
 
         def solve_K32_g(r):
             """The raw factor applied in the global layout, (B, n[, k])."""
