@@ -1,0 +1,3 @@
+"""device_idle_share.scen: see ``core.readers.device_idle_share``."""
+
+from sqpbench.core.readers import device_idle_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""host_syncs_per_request.dispatch: see ``core.readers.host_syncs_per_request``."""
+
+from sqpbench.core.readers import host_syncs_per_request as read  # noqa: F401

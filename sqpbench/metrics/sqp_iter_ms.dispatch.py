@@ -1,0 +1,3 @@
+"""sqp_iter_ms.dispatch: see ``core.readers.sqp_iter_ms``."""
+
+from sqpbench.core.readers import sqp_iter_ms as read  # noqa: F401
