@@ -94,6 +94,21 @@ cannot drift apart.
   its JAX wall.  ``--only NAME[,NAME]`` runs the named pieces and merges
   them into the existing file (``REPLICATED_PIECES``).  Written to
   ``anchor_replicated.json``.
+* ``--tests``: the JAX halves of port CPU tests whose live JAX solve cost
+  more than ten seconds of compiling, each a piece named after its test
+  (``TESTS_PIECES``): ``ls_case9_b4`` (``tests/test_torch_ls.py``'s batch of
+  four case9 load scenarios under SQP-LS, ``jax.vmap`` of the JAX LS solve),
+  ``chunked_hs071_b3`` (``tests/test_torch_chunked.py``'s hs071 lanes under
+  ``mixed_ir`` with ``qp_rescue`` and under ``mixed_polish``, through the
+  JAX package's batched solver), ``toy_sharded_b16`` (the toy fleet of
+  ``tests/test_torch_sharding.py`` through the JAX package's
+  ``make_sharded_solver`` on the fake 8-device CPU mesh) and ``slice_case5_b4``
+  (``tests/test_torch_slice.py``'s case5 slice, interpret-mode Pallas).  Run
+  on the tests' own fake 8-device mesh; ``--only NAME[,NAME]`` runs the
+  named pieces and merges them into ``anchor_tests.json``.  The tests take
+  each piece's configuration (sizes, seeds, starts, parameters) from the
+  file, so it is written once, here; hs071 comes from
+  ``tests/hs071_problem.py``, which the test imports too.
 
 Usage::
 
@@ -109,6 +124,8 @@ Usage::
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --plane [--single]
         [--case C] [--batch B] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_anchor.py --replicated
+        [--only NAME[,NAME]] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_anchor.py --tests
         [--only NAME[,NAME]] [--out PATH]
 
 The reference's factorization backend defaults to the path's own,
@@ -682,6 +699,101 @@ def run_replicated(out_path: str, only: list[str]) -> None:
         save()
 
 
+#: ``--tests``: the piece names, and the configurations the tests take from
+#: the file
+TESTS_PIECES = ("ls_case9_b4", "chunked_hs071_b3", "toy_sharded_b16", "slice_case5_b4")
+LS_CASE9 = dict(batch=4, seed=11, spread=0.05,
+                params=dict(_ACOPF_TOL, algorithm="SQP-LS", max_iter=100))
+CHUNKED_HS071 = dict(batch=3, step=1.0e-3, params=dict(
+    mixed_ir_rescue=dict(max_iter=200, OutputFlag=0, qp_rescue=True, kkt_precision="mixed_ir"),
+    mixed_polish=dict(max_iter=200, OutputFlag=0, qp_rescue=False, kkt_precision="mixed_polish",
+                      tol_infeas=1e-8, tol_residual=1e-8, qp_tol=1e-8)))
+TOY_SHARDED = dict(batch=16, seed=11, devices=8, params=dict(max_iter=200, OutputFlag=0))
+SLICE_CASE5 = dict(batch=4, seed=7, spread=0.03, params=PARAMS)
+
+
+def run_tests(out_path: str, only: list[str]) -> None:
+    """``--tests``: the JAX halves of the port's CPU tests, merged piece by piece."""
+    import jax
+    import jax.numpy as jnp
+
+    import sqpsolver_tpu as sqp
+    from sqpsolver_tpu.algorithms.sqp_ls import make_ls_solver
+    from sqpsolver_tpu.models.acopf import acopf_polar
+    from sqpsolver_tpu.models.matpower import load_case
+    from sqpsolver_tpu.models.power import case9
+    from sqpsolver_tpu.models.toy import toy_nlp
+    from sqpsolver_tpu.nlp import build_nlp
+    from sqpsolver_tpu.parallel import batch, sharding
+
+    import sqpsolver_tpu_torch.models.acopf as t_acopf
+    import sqpsolver_tpu_torch.models.matpower as t_matpower
+    import sqpsolver_tpu_torch.models.power as t_power
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import hs071_problem  # the test's hs071, written out for both packages
+
+    assert len(jax.devices()) == TOY_SHARDED["devices"], jax.devices()
+    record = {}
+    t0 = time.time()
+
+    def lane_records(out, lanes):
+        recs = []
+        for k in range(lanes):
+            res = sqp.from_raw(jax.tree.map(lambda a: a[k], out), 0.0)
+            recs.append(dict(result_record(res), success=bool(res.success)))
+        return recs
+
+    for piece in only:
+        t1 = time.time()
+        if piece == "ls_case9_b4":
+            cfg = LS_CASE9
+            nlp = acopf_polar(case9())
+            theta = t_acopf.load_scenarios(t_power.case9(), cfg["batch"], seed=cfg["seed"],
+                                           spread=cfg["spread"])
+            solve = make_ls_solver(nlp, sqp.Parameters(**cfg["params"]), verbose=False)._raw
+            out = jax.jit(jax.vmap(solve))(batch.batch_data(nlp, cfg["batch"], theta=theta))
+            record[piece] = dict(cfg, lanes=lane_records(out, cfg["batch"]))
+        elif piece == "chunked_hs071_b3":
+            cfg = CHUNKED_HS071
+            nlp = hs071_problem.hs071(build_nlp, jnp)
+            x0 = hs071_problem.starts(cfg["step"])[:cfg["batch"]]
+            runs = {}
+            for name, kw in cfg["params"].items():
+                out = batch.make_batch_solver(nlp, sqp.Parameters(**kw))(
+                    batch.batch_data(nlp, cfg["batch"], x0=x0))
+                runs[name] = lanes_of(out) | dict(x=np.asarray(out.x).tolist())
+            record[piece] = dict(cfg, runs=runs)
+        elif piece == "toy_sharded_b16":
+            cfg = TOY_SHARDED
+            x0 = np.random.default_rng(cfg["seed"]).uniform(-0.5, 0.5, (cfg["batch"], 2))
+            mesh = sharding.instance_mesh(jax.devices()[:cfg["devices"]])
+            nlp = toy_nlp()
+            data = sharding.shard_data(batch.batch_data(nlp, cfg["batch"], x0=x0), mesh)
+            out = sharding.make_sharded_solver(nlp, sqp.Parameters(**cfg["params"]), mesh)(data)
+            record[piece] = dict(cfg, x0=x0.tolist(),
+                                 lanes=lanes_of(out) | dict(x=np.asarray(out.x).tolist()))
+        elif piece == "slice_case5_b4":
+            cfg = SLICE_CASE5
+            theta = t_acopf.load_scenarios(t_matpower.load_case("case5"), cfg["batch"],
+                                           seed=cfg["seed"], spread=cfg["spread"])
+            nlp = acopf_polar(load_case("case5"))
+            out = batch.make_batch_solver(nlp, sqp.Parameters(**cfg["params"]))(
+                batch.batch_data(nlp, cfg["batch"], theta=theta, dtype=jnp.float64))
+            record[piece] = dict(cfg, lanes=lanes_of(out))
+        else:
+            raise SystemExit(f"--only: unknown piece {piece!r}; one of {TESTS_PIECES}")
+        record[piece]["seconds_with_compile"] = round(time.time() - t1, 1)
+        print(f"[{time.time() - t0:7.1f}s] {piece} done", file=sys.stderr, flush=True)
+    merged = {}
+    if os.path.exists(out_path):
+        with open(out_path) as fh:
+            merged = json.load(fh)
+    with open(out_path, "w") as fh:
+        json.dump(merged | dict(reference=_reference()) | record, fh, indent=1)
+        fh.write("\n")
+
+
 def run_hs(out_path: str) -> None:
     """``--hs``: the single-NLP anchors (see the module docstring).  Each
     solve compiles its own program; XLA:CPU runs out of code memory after
@@ -751,9 +863,13 @@ def main() -> None:
     ap.add_argument("--replicated", action="store_true",
                     help="write the pegase-scale replicated-network anchors "
                          "(anchor_replicated.json) instead")
+    ap.add_argument("--tests", action="store_true",
+                    help="write the JAX halves of the port's CPU tests "
+                         "(anchor_tests.json) instead")
     ap.add_argument("--only", default=None,
-                    help="with --replicated: comma-separated pieces to run and merge "
-                         f"(default all: {','.join(REPLICATED_PIECES)})")
+                    help="with --replicated or --tests: comma-separated pieces to run and "
+                         f"merge (default all: {','.join(REPLICATED_PIECES)}; "
+                         f"{','.join(TESTS_PIECES)})")
     ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--max-iter", type=int, default=None,
                     help=f"default {PARAMS['max_iter']}; 100 for structured case118")
@@ -787,6 +903,8 @@ def main() -> None:
         name = "anchor_hs.json"
     elif args.replicated:
         name = "anchor_replicated.json"
+    elif args.tests:
+        name = "anchor_tests.json"
     elif args.single:
         name = "anchor_plane_single.json" if args.plane else "anchor_structured_single.json"
     out_path = args.out or os.path.join(DATA, name)
@@ -799,9 +917,10 @@ def main() -> None:
             + " --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"
         ).strip()
         os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
-    if args.block_sharded or args.multiprocess:
+    if args.block_sharded or args.multiprocess or args.tests:
         # the fake CPU mesh of the JAX package's tests (tests/conftest.py)
-        devices = (BLOCK_SHARDED if args.block_sharded else MULTIPROCESS)["devices"]
+        devices = (BLOCK_SHARDED if args.block_sharded else MULTIPROCESS if args.multiprocess
+                   else TOY_SHARDED)["devices"]
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={devices}"
@@ -814,6 +933,9 @@ def main() -> None:
         return
     if args.replicated:
         run_replicated(out_path, args.only.split(",") if args.only else list(REPLICATED_PIECES))
+        return
+    if args.tests:
+        run_tests(out_path, args.only.split(",") if args.only else list(TESTS_PIECES))
         return
     if args.single:
         (run_plane_single if args.plane else run_structured_single)(out_path)

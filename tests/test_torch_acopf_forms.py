@@ -43,7 +43,6 @@ from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import matpower as t_matpower
 from sqpsolver_tpu_torch.models import power as t_power
 
-torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "sqpsolver_tpu_torch", "data")
 #: ``tests/test_acopf.py``'s parameters (the reference example's)

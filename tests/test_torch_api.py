@@ -43,14 +43,6 @@ P = dict(max_iter=200, OutputFlag=0)
 COUNTERS = ("iterations", "qp_iters_total", "n_accept", "n_reject", "n_soc_accept", "n_fr_iters")
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def assert_same_solve(tr, jr, what=""):
     """The port's Results ``tr`` against the JAX package's ``jr``."""
     assert tr.status == jr.status, f"{what}: {tr.status_name} vs {jr.status_name}"

@@ -36,7 +36,6 @@ from sqpsolver_tpu_torch.ops import kkt_bbd as t_bbd
 from sqpsolver_tpu_torch.ops import qp_ipm as t_qp
 from sqpsolver_tpu_torch.structure import build_block_structure as t_build
 
-torch.set_num_threads(1)
 
 
 def _rel(got, want):

@@ -24,7 +24,6 @@ from sqpsolver_tpu_torch.ops.chol_blocked import (
 )
 from sqpsolver_tpu_torch.ops.linsolve import tri_inv
 
-torch.set_num_threads(2)
 NS = [16, 72, 96, 128, 1, 33]  # one tile, the slice's K and S, full, a single element, odd
 
 

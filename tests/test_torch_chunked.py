@@ -3,8 +3,8 @@ and the Lanczos shift, against the JAX package and against the port's own
 monolithic solver.
 
 The problem is hs071 (four variables in [1, 5], x1 x2 x3 x4 >= 25, sum of
-squares = 40; f* = 17.0140173), written out here for both packages through
-their ``build_nlp``; six lanes start from shifted points.
+squares = 40; f* = 17.0140173), written out in ``hs071_problem.py`` for both
+packages through their ``build_nlp``; six lanes start from shifted points.
 
 * chunked equals monolithic **bit for bit** in the port, for ``chunk0`` in
   {1, 5} and ``sub_batch`` in {0, 2} (the work queue with slabs narrower than
@@ -16,8 +16,10 @@ their ``build_nlp``; six lanes start from shifted points.
   rescue-enabled solve bit for bit and the even lanes equal the first pass
   (15 iterations: the merge does not care how a lane ended);
 * ``mixed_ir`` with ``qp_rescue=True``, and ``mixed_polish`` at 1e-8
-  tolerances, against the JAX package's batched solver: status equal,
-  objective within 1e-8 relative, x within 1e-6;
+  tolerances, against the JAX package's batched solver (its lanes, the
+  parameters and the starts stored by ``scripts/torch_anchor.py --tests`` in
+  ``data/anchor_tests.json``): status equal, objective within 1e-8
+  relative, x within 1e-6;
 * a JAX solver state taken after two iterations, carried over by
   ``sqp_state_to_torch``, continues in the port to the state the JAX package
   reaches (floats within 1e-7, relative or absolute: two more iterations of QPs solved
@@ -29,12 +31,15 @@ their ``build_nlp``; six lanes start from shifted points.
 """
 
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hs071_problem import B, X0, hs071, starts
 
 import sqpsolver_tpu_torch as tp
 from sqpsolver_tpu.algorithms import common as j_common
@@ -50,27 +55,10 @@ from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
 from sqpsolver_tpu_torch.parallel import batch as batch_mod
 from sqpsolver_tpu_torch.status import Status
 
-torch.set_num_threads(2)
-B = 6
-X0 = np.array([1.0, 5.0, 5.0, 1.0])
 KW = dict(max_iter=200, OutputFlag=0, qp_rescue=False)
 SHORT = dict(KW, max_iter=15)
-
-
-def hs071(build, lib):
-    return build(
-        lambda x: x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2],
-        X0,
-        x_l=np.ones(4),
-        x_u=np.full(4, 5.0),
-        eq=lambda x: lib.stack([x[0] ** 2 + x[1] ** 2 + x[2] ** 2 + x[3] ** 2 - 40.0]),
-        ineq=lambda x: lib.stack([25.0 - x[0] * x[1] * x[2] * x[3]]),
-        name="hs071",
-    )
-
-
-def starts(step):
-    return np.stack([np.clip(X0 + step * i, 1.0, 5.0) for i in range(B)])
+ANCHOR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "sqpsolver_tpu_torch", "data", "anchor_tests.json")
 
 
 @pytest.fixture(scope="module")
@@ -158,28 +146,22 @@ def test_rescue_fallback_merge_exact(nlp, short_mono, monkeypatch):
     assert plain.stats["fallback_lanes"] == []
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(kkt_precision="mixed_ir", qp_rescue=True),
-        dict(kkt_precision="mixed_polish", tol_infeas=1e-8, tol_residual=1e-8, qp_tol=1e-8),
-    ],
-    ids=["mixed_ir_rescue", "mixed_polish"],
-)
-def test_float64_phase_solves_match_jax(nlp, kw):
-    kw = dict(KW, **kw)
-    x0 = starts(1.0e-3)[:3]
-    j_nlp = hs071(j_build, jnp)
-    jr = j_batch.make_batch_solver(j_nlp, JParameters(**kw))(j_batch.batch_data(j_nlp, 3, x0=x0))
+@pytest.mark.parametrize("name", ["mixed_ir_rescue", "mixed_polish"])
+def test_float64_phase_solves_match_jax(nlp, name):
+    with open(ANCHOR) as fh:
+        anchor = json.load(fh)["chunked_hs071_b3"]
+    kw = anchor["params"][name]
+    x0 = starts(anchor["step"])[:anchor["batch"]]
+    jr = anchor["runs"][name]
     solver = tp.make_chunked_batch_solver(nlp, tp.Parameters(**kw), chunk0=3)
     trips0 = solve_qp.loop_trips[2]
-    tr = solver(tp.batch_data(nlp, 3, x0=x0, device="cpu"))
+    tr = solver(tp.batch_data(nlp, len(x0), x0=x0, device="cpu"))
     if kw["kkt_precision"] == "mixed_polish":
         assert solve_qp.loop_trips[2] > trips0  # the float64 phase ran
-    np.testing.assert_array_equal(tr.status.numpy(), np.asarray(jr.status))
+    np.testing.assert_array_equal(tr.status.numpy(), np.asarray(jr["status"]))
     assert (tr.status.numpy() == 0).all()
-    np.testing.assert_allclose(tr.obj_val.numpy(), np.asarray(jr.obj_val), rtol=1e-8)
-    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=1e-6)
+    np.testing.assert_allclose(tr.obj_val.numpy(), np.asarray(jr["obj"]), rtol=1e-8)
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr["x"]), atol=1e-6)
 
 
 def test_state_carries_over_from_jax(nlp):

@@ -25,7 +25,6 @@ from sqpsolver_tpu_torch.algorithms import common as t_common
 from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import matpower as t_matpower
 
-torch.set_num_threads(2)
 
 
 def test_status_tables_identical():

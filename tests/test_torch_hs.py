@@ -124,15 +124,6 @@ class ChaoticStatus(AssertionError):
     """A ``CHAOTIC`` problem ends in another status than the JAX anchor's."""
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Tiny problems: intra-op threads cost more than they bring."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _pair(name):
     if name in PATHOLOGICAL:
         return getattr(t_hs, PATHOLOGICAL[name])(), getattr(j_hs, PATHOLOGICAL[name])()

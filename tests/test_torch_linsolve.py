@@ -19,7 +19,6 @@ from sqpsolver_tpu.ops import linsolve as j_lin
 from sqpsolver_tpu_torch._lanes import any_lane
 from sqpsolver_tpu_torch.ops import linsolve as t_lin
 
-torch.set_num_threads(2)
 N = 24
 SHIFTS = [0.0, 0.0, -0.5, -3.0, -40.0, 0.0]  # smallest-eigenvalue shifts per lane
 

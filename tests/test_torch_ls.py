@@ -18,12 +18,16 @@ package's, on the CPU in float64.
   ways (ROADMAP Queue 3).  Up to iteration 40 with the LAPACK-free
   ``gershgorin`` shift every count and ``x`` agree.
 * A batch of 4 ACOPF case9 load scenarios through the port's batched LS
-  against ``jax.vmap`` of the JAX LS solve, lane by lane: status,
-  iterations and counters equal, objective within 1e-10 relative, ``x``
-  within the solves' own feasibility target 1e-6.
+  against ``jax.vmap`` of the JAX LS solve, stored by
+  ``scripts/torch_anchor.py --tests`` in ``data/anchor_tests.json``, lane by
+  lane: status, iterations and counters equal, objective within 1e-10
+  relative, ``x`` within the solves' own feasibility target 1e-6.
 """
 
-import jax
+import json
+import os
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,12 +36,8 @@ import torch
 import sqpsolver_tpu as jsqp
 import sqpsolver_tpu_torch as tp
 from sqpsolver_tpu.algorithms import merit as j_merit
-from sqpsolver_tpu.algorithms.sqp_ls import make_ls_solver as j_make_ls_solver
-from sqpsolver_tpu.models import acopf as j_acopf
 from sqpsolver_tpu.models import hs as j_hs
-from sqpsolver_tpu.models import power as j_power
 from sqpsolver_tpu.models import toy as j_toy
-from sqpsolver_tpu.parallel import batch as j_batch
 from sqpsolver_tpu_torch._lanes import dot
 from sqpsolver_tpu_torch.algorithms import merit as t_merit
 from sqpsolver_tpu_torch.algorithms.common import constraint_violation
@@ -46,17 +46,12 @@ from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import hs as t_hs
 from sqpsolver_tpu_torch.models import power as t_power
 from sqpsolver_tpu_torch.models import toy as t_toy
+from sqpsolver_tpu_torch.status import status_name
 
 LS = dict(algorithm="SQP-LS", max_iter=300, OutputFlag=0)
 COUNTERS = ("iterations", "qp_iters_total", "n_accept", "n_reject", "n_soc_accept", "n_fr_iters")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+ANCHOR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "sqpsolver_tpu_torch", "data", "anchor_tests.json")
 
 
 def _armijo_problem(name):
@@ -170,19 +165,22 @@ def test_ls_hs071_matches_jax():
 
 
 def test_ls_batch_of_case9_matches_jax():
-    kw = dict(algorithm="SQP-LS", max_iter=100, OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4)
-    j_case, t_case = j_power.case9(), t_power.case9()
-    j_nlp, t_nlp = j_acopf.acopf_polar(j_case), t_acopf.acopf_polar(t_case)
-    theta = t_acopf.load_scenarios(t_case, 4, seed=11, spread=0.05)
-    j_data = j_batch.batch_data(j_nlp, 4, theta=theta)
-    j_out = jax.jit(jax.vmap(j_make_ls_solver(j_nlp, jsqp.Parameters(**kw), verbose=False)._raw))(
-        j_data
-    )
+    with open(ANCHOR) as fh:
+        anchor = json.load(fh)["ls_case9_b4"]
+    kw = anchor["params"]
+    assert kw["algorithm"] == "SQP-LS"
+    t_case = t_power.case9()
+    t_nlp = t_acopf.acopf_polar(t_case)
+    theta = t_acopf.load_scenarios(t_case, anchor["batch"], seed=anchor["seed"],
+                                   spread=anchor["spread"])
     t_out = tp.make_batch_solver(t_nlp, tp.Parameters(**kw))(
-        tp.batch_data(t_nlp, 4, theta=theta, device="cpu")
+        tp.batch_data(t_nlp, anchor["batch"], theta=theta, device="cpu")
     )
-    for lane in range(4):
-        jr = jsqp.from_raw(jax.tree.map(lambda a: a[lane], j_out), 0.0)
+    for lane in range(anchor["batch"]):
+        rec = anchor["lanes"][lane]
+        jr = SimpleNamespace(**{k: rec[k] for k in COUNTERS + ("status", "success")},
+                             status_name=status_name(rec["status"]), x=np.asarray(rec["x"]),
+                             obj_val=rec["obj"])
         # x to the solves' own feasibility target: they stop at tol_infeas
         # 1e-6, and the last steps of lane 3 differ by 1.4e-7 with rounding
         _same(tp.from_raw(t_out, 0.0, lane=lane), jr, f"lane {lane}", x_tol=1e-6)

@@ -36,7 +36,6 @@ from sqpsolver_tpu_torch.models.toy import toy_nlp
 from sqpsolver_tpu_torch.parallel import multihost as mh
 from sqpsolver_tpu_torch.parallel.sharding import make_sharded_solver
 
-torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STATUSES = [
@@ -170,7 +169,7 @@ def test_two_process_gloo_census_and_lanes():
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=240)
+            out, _ = p.communicate(timeout=100)
             outs.append(out.decode())
     finally:
         for p in procs:

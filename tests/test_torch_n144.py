@@ -35,7 +35,6 @@ from sqpsolver_tpu_torch.models import power as t_power
 from sqpsolver_tpu_torch.ops import qp_ipm as t_qp
 from sqpsolver_tpu_torch.ops.chol_blocked import cholesky_blocked
 
-torch.set_num_threads(2)
 B = 2
 
 

@@ -20,7 +20,6 @@ from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import matpower as t_matpower
 from sqpsolver_tpu_torch.models import toy as t_toy
 
-torch.set_num_threads(2)
 RTOL = 1e-11
 B = 3
 

@@ -32,7 +32,6 @@ from sqpsolver_tpu.ops.chol_blocked import tri_inv_blocked as j_tri_inv
 from sqpsolver_tpu_torch.ops import linsolve as t_lin
 from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, cholesky_blocked, tri_inv_blocked
 
-torch.set_num_threads(2)
 B = 2
 
 

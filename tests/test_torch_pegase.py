@@ -60,7 +60,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
-torch.set_num_threads(1)
 with open(os.path.join(ROOT, "sqpsolver_tpu_torch", "data", "anchor_replicated.json")) as fh:
     ANCHOR = json.load(fh)
 

@@ -34,7 +34,6 @@ import torch
 from sqpsolver_tpu.ops import qp_ipm as j_qp
 from sqpsolver_tpu_torch.ops import qp_ipm as t_qp
 
-torch.set_num_threads(2)
 INF = np.inf
 N, M, B = 10, 14, 6
 HARD = (0, 3)

@@ -69,7 +69,6 @@ from sqpsolver_tpu_torch.ops import chol_blocked as t_chol
 from sqpsolver_tpu_torch.ops import linsolve as t_lin
 from sqpsolver_tpu_torch.ops import qp_ipm as t_qp
 
-torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "sqpsolver_tpu_torch", "data")
 N, M, B, CAP = 12, 20, 4, 8

@@ -2,8 +2,9 @@
 block sharding) in the port against the JAX package.
 
 * Instance sharding: toy b16 over ``["cpu"] * 8`` against the JAX package's
-  ``make_sharded_solver`` on its fake 8-device CPU mesh (conftest): status
-  and iterations equal per lane, ``x`` within 1e-8; case9 b8 over
+  ``make_sharded_solver`` on its fake 8-device CPU mesh
+  (``data/anchor_tests.json``, written by ``scripts/torch_anchor.py
+  --tests``): status and iterations equal per lane, ``x`` within 1e-8; case9 b8 over
   ``["cpu"] * 4`` against the unsharded port, bit for bit in float64 (a
   shard's lanes run the same arithmetic as in the whole batch); the
   per-shard results come back on ``mesh.devices[0]`` in lane order;
@@ -23,16 +24,11 @@ block sharding) in the port against the JAX package.
 import json
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-import sqpsolver_tpu as jsqp
 import sqpsolver_tpu_torch as tp
-from sqpsolver_tpu.models.toy import toy_nlp as j_toy_nlp
-from sqpsolver_tpu.parallel import batch as j_batch
-from sqpsolver_tpu.parallel import sharding as j_shd
 from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
 from sqpsolver_tpu_torch.models.power import case9
 from sqpsolver_tpu_torch.models.stochastic import couple_scenarios, pg_shared_mask
@@ -40,7 +36,6 @@ from sqpsolver_tpu_torch.models.toy import toy_nlp
 from sqpsolver_tpu_torch.ops import kkt_bbd
 from sqpsolver_tpu_torch.parallel import sharding as shd
 
-torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "sqpsolver_tpu_torch", "data")
 TOY = dict(max_iter=200, OutputFlag=0)
@@ -54,28 +49,19 @@ def _anchor(name):
         return json.load(fh)
 
 
-def _toy_starts():
-    """16 seeded starts around the origin: lanes that take different
-    numbers of iterations."""
-    return np.random.default_rng(11).uniform(-0.5, 0.5, (16, 2))
-
-
 def test_toy_sharded_matches_jax_fake_mesh():
-    x0 = _toy_starts()
-    j_mesh = j_shd.instance_mesh(jax.devices()[:8])
-    j_nlp = j_toy_nlp()
-    j_data = j_shd.shard_data(j_batch.batch_data(j_nlp, 16, x0=x0), j_mesh)
-    want = j_shd.make_sharded_solver(j_nlp, jsqp.Parameters(**TOY), j_mesh)(j_data)
+    anchor = _anchor("anchor_tests.json")["toy_sharded_b16"]
+    x0, want = np.asarray(anchor["x0"]), anchor["lanes"]
     nlp = toy_nlp()
-    mesh = shd.instance_mesh(["cpu"] * 8)
-    data = shd.shard_data(tp.batch_data(nlp, 16, x0=x0, device="cpu"), mesh)
+    mesh = shd.instance_mesh(["cpu"] * anchor["devices"])
+    data = shd.shard_data(tp.batch_data(nlp, len(x0), x0=x0, device="cpu"), mesh)
     assert [int(s.x0.shape[0]) for s in data.shards] == [2] * 8
-    got = shd.make_sharded_solver(nlp, tp.Parameters(**TOY), mesh)(data)
+    got = shd.make_sharded_solver(nlp, tp.Parameters(**anchor["params"]), mesh)(data)
     assert got.x.shape == (16, 2) and got.x.device == torch.device("cpu")
-    np.testing.assert_array_equal(got.status.numpy(), np.asarray(want.status))
-    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(want.iterations))
+    np.testing.assert_array_equal(got.status.numpy(), np.asarray(want["status"]))
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(want["iterations"]))
     assert len(set(got.iterations.tolist())) > 1
-    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want["x"]), rtol=0, atol=1e-8)
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,9 @@
   factors through ``kkt_backend="pallas"`` (the hand-written kernel's path in
   the port; interpret-mode Pallas on the JAX side), ``ladder`` shift, Schur
   cap, rescue and projection off -- on MATPOWER case5 with 4 load
-  scenarios: per-lane status equal and objective within 1e-7 relative.
+  scenarios (the JAX lanes stored by ``scripts/torch_anchor.py --tests`` in
+  ``data/anchor_tests.json``): per-lane status equal and objective within
+  1e-7 relative.
   (The full case30 b32 slice runs on the GPU in ``chip_smoke.py`` against
   the stored JAX anchor.)
 """
@@ -25,8 +27,6 @@ import pytest
 import torch
 
 import sqpsolver_tpu_torch as tp
-from sqpsolver_tpu.models import acopf as j_acopf
-from sqpsolver_tpu.models import matpower as j_matpower
 from sqpsolver_tpu.models import toy as j_toy
 from sqpsolver_tpu.parallel import batch as j_batch
 from sqpsolver_tpu.parameters import Parameters as JParameters
@@ -34,11 +34,8 @@ from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import matpower as t_matpower
 from sqpsolver_tpu_torch.models import toy as t_toy
 
-torch.set_num_threads(2)
-ANCHOR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "sqpsolver_tpu_torch", "data", "anchor_case30_b32.json",
-)
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "sqpsolver_tpu_torch", "data")
 
 
 @pytest.mark.parametrize(
@@ -140,21 +137,24 @@ def test_feasibility_restoration_matches_jax():
 
 @pytest.fixture(scope="module")
 def slice_case5():
-    with open(ANCHOR) as fh:
-        params = json.load(fh)["params"]
-    batch = 4
+    with open(os.path.join(DATA, "anchor_tests.json")) as fh:
+        anchor = json.load(fh)["slice_case5_b4"]
+    params = anchor["params"]
+    with open(os.path.join(DATA, "anchor_case30_b32.json")) as fh:
+        assert params == json.load(fh)["params"]  # the chip slice's parameters
     t_case = t_matpower.load_case("case5")
-    theta = t_acopf.load_scenarios(t_case, batch, seed=7, spread=0.03)
-    j_nlp = j_acopf.acopf_polar(j_matpower.load_case("case5"))
-    jr = j_batch.make_batch_solver(j_nlp, JParameters(**params))(
-        j_batch.batch_data(j_nlp, batch, theta=theta, dtype=jnp.float64)
-    )
+    theta = t_acopf.load_scenarios(t_case, anchor["batch"], seed=anchor["seed"],
+                                   spread=anchor["spread"])
     t_nlp = t_acopf.acopf_polar(t_case)
     tr = tp.make_batch_solver(t_nlp, tp.Parameters(**params))(
-        tp.batch_data(t_nlp, batch, theta=theta, device="cpu")
+        tp.batch_data(t_nlp, anchor["batch"], theta=theta, device="cpu")
     )
     assert params["kkt_backend"] == "pallas" and params["kkt_precision"] == "mixed_ir"
-    return tp.result_to_numpy(jr), tp.result_to_numpy(tr)
+    lanes = anchor["lanes"]
+    j = {key: np.asarray(lanes[field]) for key, field in (
+        ("status", "status"), ("obj_val", "obj"), ("iterations", "iterations"),
+        ("qp_iters_total", "qp_trips"))}
+    return j, tp.result_to_numpy(tr)
 
 
 def test_slice_status_and_objective(slice_case5):

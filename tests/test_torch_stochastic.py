@@ -30,7 +30,6 @@ from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import power as t_power
 from sqpsolver_tpu_torch.models import stochastic as t_stochastic
 
-torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "sqpsolver_tpu_torch", "data")
 

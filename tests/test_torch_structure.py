@@ -13,7 +13,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from sqpsolver_tpu import structure as j_structure
 from sqpsolver_tpu.models import acopf as j_acopf
@@ -24,7 +23,6 @@ from sqpsolver_tpu_torch.models import acopf as t_acopf
 from sqpsolver_tpu_torch.models import matpower as t_matpower
 from sqpsolver_tpu_torch.models import power as t_power
 
-torch.set_num_threads(1)
 
 CASES = {
     "case9": (t_power.case9, j_power.case9),

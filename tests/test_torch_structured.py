@@ -38,7 +38,6 @@ from sqpsolver_tpu_torch.models.power import case9
 from sqpsolver_tpu_torch.models.toy import toy_nlp
 from sqpsolver_tpu_torch.ops.qp_ipm import DenseOp, IpmOptions, solve_qp, solve_qp_op
 
-torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "sqpsolver_tpu_torch", "data")
 

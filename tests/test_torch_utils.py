@@ -21,7 +21,6 @@ import json
 import os
 
 import numpy as np
-import pytest
 import torch
 
 import sqpsolver_tpu_torch as tp
@@ -35,14 +34,6 @@ from sqpsolver_tpu_torch.utils.warmstart import presolve_parameters, presolve_st
 PARAMS = tp.Parameters(max_iter=200, OutputFlag=0)
 ACOPF = tp.Parameters(max_iter=60, OutputFlag=0, tol_infeas=1e-6, tol_residual=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_chunked_matches_monolithic():

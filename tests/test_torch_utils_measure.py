@@ -21,7 +21,6 @@ from sqpsolver_tpu.utils import flops as j_flops
 from sqpsolver_tpu_torch.models.toy import toy_nlp
 from sqpsolver_tpu_torch.utils import flops, profiling
 
-torch.set_num_threads(1)
 
 DENSE = list(itertools.product((2, 72, 344), (0, 1, 143, 609), (0, 96, 336), (0, 2, 4)))
 #: (P, nd, ns, mr, n_schur): case118's structured blocks, the coupled case9
