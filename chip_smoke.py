@@ -1149,9 +1149,9 @@ def run_plane_case30(torch, record, card, wall_ir=None):
 def capture_case118_kkt(torch):
     """The KKT systems the IPM factors in the first QP of real case118 b16 at
     its start point: one SQP iteration of dense case118's configuration, with
-    the arguments of every ``DenseOp.prepare`` of that QP and of the first
-    ``solve_block`` after each kept, up to the last trip on which every
-    lane is still iterating."""
+    the ``DenseOp.prepare`` arguments of every trip of that QP and of the
+    first ``solve_block`` after each kept, up to the last trip on which
+    every lane is still iterating."""
     from sqpsolver_tpu_torch import Parameters, batch_data, make_batch_solver
     from sqpsolver_tpu_torch.models import acopf
     from sqpsolver_tpu_torch.models.matpower import load_case
@@ -1162,14 +1162,22 @@ def capture_case118_kkt(torch):
     nlp = acopf.acopf_polar(case)
     theta = acopf.load_scenarios(case, anchor["batch"], seed=anchor["seed"], spread=anchor["spread"])
     trips = []
-    prepare = qp_ipm.DenseOp.prepare
+    pre, block_solver = qp_ipm._pre, qp_ipm.DenseOp.block_solver
 
-    def capture(op, *args):
-        solve_block, delta = prepare(op, *args)
-        if trips and trips[0]["op"] is not op:
+    def capture_pre(sl, lop, call, t, cap, staged):
+        # a trip's ``prepare`` arguments, from the stretch that computes them
+        out = pre(sl, lop, call, t, cap, staged)
+        if not trips or trips[0]["op"] is lop:
+            args = (out[t + "diag_k"], out[t + "invE_soft"], out[t + "stiff"],
+                    out[t + "E_stiff"], sl["st.delta"])
+            trips.append({"op": lop, "args": tuple(a.clone() for a in args)})
+        return out
+
+    def capture_block(op, *args):
+        solve_block, delta = block_solver(op, *args)
+        trip = trips[-1]
+        if trip["op"] is not op:
             return solve_block, delta
-        trip = {"op": op, "args": tuple(a.clone() for a in args)}
-        trips.append(trip)
 
         def first_solve(r1, r2):
             trip.setdefault("rhs", (r1.clone(), r2.clone()))
@@ -1177,12 +1185,14 @@ def capture_case118_kkt(torch):
 
         return first_solve, delta
 
-    qp_ipm.DenseOp.prepare = capture
+    # plain calls, so that the hooks run on every trip
+    graphs = qp_ipm._GRAPHS
+    qp_ipm._GRAPHS, qp_ipm._pre, qp_ipm.DenseOp.block_solver = False, capture_pre, capture_block
     try:
         make_batch_solver(nlp, Parameters(**dict(anchor["params"], max_iter=1)))(
             batch_data(nlp, anchor["batch"], theta=theta))
     finally:
-        qp_ipm.DenseOp.prepare = prepare
+        qp_ipm._GRAPHS, qp_ipm._pre, qp_ipm.DenseOp.block_solver = graphs, pre, block_solver
     torch.cuda.synchronize()
     # a lane that has left the loop keeps its state bit for bit, so its
     # arguments repeat: keep the trips before the first lane leaves

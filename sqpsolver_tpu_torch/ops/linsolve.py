@@ -27,8 +27,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._lanes import amax0, amin_inf, any_lane, mv, select
+from .._lanes import amax0, amin_inf, mv, select, true_float32_matmul
 from .chol_blocked import cholesky_blocked, tri_inv_blocked
+from .stretches import Eager
 
 #: multiplicative ladder for the inertia-correction regularization
 _REG_GROWTH = 100.0
@@ -61,6 +62,193 @@ def _chol_library(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[:, None, None], L, torch.nan)
 
 
+class LadderSpec(NamedTuple):
+    """How the ladder factors one matrix (the options of :func:`factorize_spd`;
+    ``factor_dtype`` resolved)."""
+
+    factor_dtype: torch.dtype
+    backend: str = "xla"
+    min_pivot: float = 0.0
+    equilibrate: bool = False
+    invert: bool = False
+
+    def chol(self):
+        """The factorization call: the hand kernel for float32 factors under
+        ``"pallas"``, else the library."""
+        if self.backend == "pallas" and self.factor_dtype == torch.float32:
+            return cholesky_blocked
+        return _chol_library
+
+
+# The ladder as stretches (``ops/stretches.py``) over slots named ``t + key``:
+# ``M`` the matrix, ``Meff`` its equilibrated form (when equilibrated),
+# ``dvec``/``scale`` the equilibration, ``floor`` the first rung, ``delta``,
+# ``L``, ``ok``, ``tries`` the ladder's state, ``X`` the next factorization's
+# input and ``Lraw`` its factor, ``nd`` the next rung, ``go`` the lanes that
+# take it, ``lo``/``hi``/``L_hi``/``mid``/``esc`` the bisection, and
+# ``matrix``/``Li`` the finished factorization's regularized matrix and
+# inverse factor.
+
+
+def _eff(spec: LadderSpec, t: str, s: dict) -> torch.Tensor:
+    return s[t + "Meff"] if spec.equilibrate else s[t + "M"]
+
+
+def _shifted(spec: LadderSpec, M_eff: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(M_eff.shape[-1], dtype=M_eff.dtype, device=M_eff.device)
+    return (M_eff + delta[:, None, None] * eye).to(spec.factor_dtype)
+
+
+def _probe(spec: LadderSpec, L: torch.Tensor) -> torch.Tensor:
+    """Lanes whose factor is usable: finite, and past ``min_pivot``."""
+    ok = _chol_ok(L)
+    if spec.min_pivot > 0.0:
+        piv = amin_inf(torch.diagonal(L, dim1=-2, dim2=-1))
+        ok = ok & (piv > spec.min_pivot)
+    return ok
+
+
+def _next_rung(spec, t, s, delta, ok, tries) -> dict:
+    """The lanes that escalate next, and the next rung's input (made whether
+    or not any lane takes it)."""
+    new_delta = torch.where(delta == 0.0, s[t + "floor"], delta * _REG_GROWTH)
+    return {
+        t + "delta": delta, t + "ok": ok, t + "tries": tries,
+        t + "go": ~ok & (tries < _REG_MAX_TRIES),
+        t + "nd": new_delta, t + "X": _shifted(spec, _eff(spec, t, s), new_delta),
+    }
+
+
+def ladder_start(spec: LadderSpec, t: str, M: torch.Tensor, delta0) -> dict:
+    """Stretch: the ladder's set-up for ``M`` (B, n, n) from ``delta0`` (a
+    scalar or (B,)), and the first factorization's input."""
+    B, dtype, dev = M.shape[0], M.dtype, M.device
+    out = {t + "M": M}
+    if spec.equilibrate:
+        dvec = torch.clamp_min(torch.abs(torch.diagonal(M, dim1=-2, dim2=-1)), 1e-30)
+        scale = torch.rsqrt(dvec)
+        out[t + "dvec"], out[t + "scale"] = dvec, scale
+        out[t + "Meff"] = M * scale[:, :, None] * scale[:, None, :]
+    M_eff = _eff(spec, t, out)
+    diag_scale = torch.clamp_min(
+        amax0(torch.abs(torch.diagonal(M_eff, dim1=-2, dim2=-1))), 1.0
+    )
+    if torch.is_tensor(delta0):
+        delta = delta0.to(dtype).expand(B)
+    else:
+        delta = torch.full((B,), float(delta0), dtype=dtype, device=dev)
+    out[t + "floor"] = diag_scale * 1e-12
+    out[t + "delta"] = delta
+    out[t + "X"] = _shifted(spec, M_eff, delta)
+    return out
+
+
+def ladder_first(spec: LadderSpec, t: str, s: dict) -> dict:
+    """Stretch after the first factorization."""
+    L = s[t + "Lraw"]
+    tries = torch.zeros(L.shape[0], dtype=torch.int32, device=L.device)
+    return {t + "L": L, **_next_rung(spec, t, s, s[t + "delta"], _probe(spec, L), tries)}
+
+
+def ladder_rung(spec: LadderSpec, t: str, s: dict) -> dict:
+    """Stretch after a factorization one rung up, on the lanes ``go``."""
+    go, L_n = s[t + "go"], s[t + "Lraw"]
+    delta = torch.where(go, s[t + "nd"], s[t + "delta"])
+    ok = torch.where(go, _probe(spec, L_n), s[t + "ok"])
+    tries = s[t + "tries"] + go.to(torch.int32)
+    return {t + "L": select(go, L_n, s[t + "L"]), **_next_rung(spec, t, s, delta, ok, tries)}
+
+
+def ladder_bisect_start(spec: LadderSpec, t: str, s: dict) -> dict:
+    """Stretch: the bisection of the escalated ``delta`` in
+    ``[delta / 100, delta]``, and its first probe's input."""
+    delta = s[t + "delta"]
+    lo = torch.maximum(delta / _REG_GROWTH, s[t + "floor"] * 1e-2)
+    mid = torch.sqrt(lo * delta)
+    return {
+        t + "esc": s[t + "ok"] & (s[t + "tries"] > 0),
+        t + "lo": lo, t + "hi": delta, t + "L_hi": s[t + "L"], t + "mid": mid,
+        t + "X": _shifted(spec, _eff(spec, t, s), mid),
+    }
+
+
+def ladder_bisect(spec: LadderSpec, t: str, s: dict, last: bool) -> dict:
+    """Stretch after a bisection probe: the next probe's input, or after the
+    ``last`` the escalated lanes' ``delta`` and factor."""
+    ok_m, mid = _probe(spec, s[t + "Lraw"]), s[t + "mid"]
+    lo = torch.where(ok_m, s[t + "lo"], mid)
+    hi = torch.where(ok_m, mid, s[t + "hi"])
+    L_hi = select(ok_m, s[t + "Lraw"], s[t + "L_hi"])
+    if last:
+        esc = s[t + "esc"]
+        return {
+            t + "delta": torch.where(esc, hi, s[t + "delta"]),
+            t + "L": select(esc, L_hi, s[t + "L"]),
+        }
+    mid = torch.sqrt(lo * hi)
+    return {
+        t + "lo": lo, t + "hi": hi, t + "L_hi": L_hi, t + "mid": mid,
+        t + "X": _shifted(spec, _eff(spec, t, s), mid),
+    }
+
+
+def run_ladder(run, spec: LadderSpec, t: str, *, true_f32: bool = False) -> None:
+    """The ladder's host points on ``run`` (``ops/stretches.py``), from
+    :func:`ladder_start`'s slots to the final ``L`` and ``delta``: a
+    factorization, then one sync per rung (the lanes that escalate take the
+    next rung, at most ``_REG_MAX_TRIES``); when any lane escalated, four
+    bisection probes.  ``true_f32`` runs it all with TF32 off."""
+    if true_f32:
+        with true_float32_matmul():
+            return run_ladder(run, spec, t)
+    chol = spec.chol()
+    run.factor(chol, t + "X", t + "Lraw")
+    run.stretch(t + "first", lambda s: ladder_first(spec, t, s))
+    escalated = False
+    while run.sync(t + "go"):
+        escalated = True
+        run.factor(chol, t + "X", t + "Lraw")
+        run.stretch(t + "rung", lambda s: ladder_rung(spec, t, s))
+    if escalated:
+        # the x100 ladder overshoots the minimal correction by up to 100x;
+        # four log-bisection steps tighten [delta / 100, delta].  Lanes that
+        # did not escalate keep their factor (under vmap the JAX cond is a
+        # per-lane select)
+        run.stretch(t + "bisect0", lambda s: ladder_bisect_start(spec, t, s))
+        for i in range(4):
+            run.factor(chol, t + "X", t + "Lraw")
+            if i < 3:
+                run.stretch(t + "bisect", lambda s: ladder_bisect(spec, t, s, False))
+            else:
+                run.stretch(t + "bisect_last", lambda s: ladder_bisect(spec, t, s, True))
+
+
+def ladder_finish(spec: LadderSpec, t: str, s: dict) -> dict:
+    """Stretch: the regularized matrix of the final ``delta`` and, under
+    ``invert``, the explicit inverse factor."""
+    M, delta = s[t + "M"], s[t + "delta"]
+    if spec.equilibrate:
+        reg_diag = torch.diag_embed(s[t + "dvec"])
+    else:
+        reg_diag = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    out = {t + "matrix": M + delta[:, None, None] * reg_diag}
+    if spec.invert:
+        out[t + "Li"] = tri_inv(s[t + "L"])
+    return out
+
+
+def ladder_factorization(spec: LadderSpec, t: str, s: dict) -> "Factorization":
+    """The finished factorization held in the slots."""
+    return Factorization(
+        chol=s[t + "L"],
+        matrix=s[t + "matrix"],
+        delta=s[t + "delta"],
+        ok=s[t + "ok"],
+        scale=s[t + "scale"] if spec.equilibrate else None,
+        inv_chol=s[t + "Li"] if spec.invert else None,
+    )
+
+
 def factorize_spd(
     M: torch.Tensor,
     delta0=0.0,
@@ -79,79 +267,15 @@ def factorize_spd(
     factors the Jacobi-scaled ``d M d`` (unit diagonal, ``d = |diag M|^-1/2``)
     so ``delta`` acts relatively (``M + delta diag|M|``).  ``min_pivot > 0``
     also escalates while the smallest pivot is below it.  ``invert`` adds the
-    explicit inverse factor so back-solves become matvecs.
+    explicit inverse factor so back-solves become matvecs.  The stretches
+    above, run as plain calls.
     """
-    B, n = M.shape[0], M.shape[-1]
-    dtype = M.dtype
-    fdtype = factor_dtype or dtype
-    eye = torch.eye(n, dtype=dtype, device=M.device)
-
-    scale = None
-    reg_diag = eye
-    if equilibrate:
-        dvec = torch.clamp_min(torch.abs(torch.diagonal(M, dim1=-2, dim2=-1)), 1e-30)
-        scale = torch.rsqrt(dvec)
-        M_eff = M * scale[:, :, None] * scale[:, None, :]
-        reg_diag = torch.diag_embed(dvec)
-    else:
-        M_eff = M
-
-    diag_scale = torch.clamp_min(
-        amax0(torch.abs(torch.diagonal(M_eff, dim1=-2, dim2=-1))), 1.0
-    )
-    delta_floor = diag_scale * 1e-12
-    delta0 = torch.as_tensor(delta0, dtype=dtype, device=M.device).expand(B)
-    hand = backend == "pallas" and fdtype == torch.float32
-    chol = cholesky_blocked if hand else _chol_library
-
-    def attempt(delta):
-        L = chol((M_eff + delta[:, None, None] * eye).to(fdtype))
-        ok = _chol_ok(L)
-        if min_pivot > 0.0:
-            piv = amin_inf(torch.diagonal(L, dim1=-2, dim2=-1))
-            ok = ok & (piv > min_pivot)
-        return L, ok
-
-    delta = delta0
-    L, ok = attempt(delta)
-    tries = torch.zeros(B, dtype=torch.int32, device=M.device)
-    escalated_any = False
-    while True:
-        go = ~ok & (tries < _REG_MAX_TRIES)
-        if not any_lane(go):
-            break
-        escalated_any = True
-        new_delta = torch.where(delta == 0.0, delta_floor, delta * _REG_GROWTH)
-        L_n, ok_n = attempt(new_delta)
-        delta = torch.where(go, new_delta, delta)
-        L = select(go, L_n, L)
-        ok = torch.where(go, ok_n, ok)
-        tries = tries + go.to(torch.int32)
-
-    if escalated_any:
-        # bisection of the escalated delta: the x100 ladder overshoots the
-        # minimal correction by up to 100x; four log-bisection steps tighten
-        # [delta / 100, delta].  Lanes that did not escalate keep their
-        # factor (under vmap the JAX cond is a per-lane select).
-        escalated = ok & (tries > 0)
-        lo = torch.maximum(delta / _REG_GROWTH, delta_floor * 1e-2)
-        hi, L_hi = delta, L
-        for _ in range(4):
-            mid = torch.sqrt(lo * hi)
-            L_m, ok_m = attempt(mid)
-            lo = torch.where(ok_m, lo, mid)
-            hi = torch.where(ok_m, mid, hi)
-            L_hi = select(ok_m, L_m, L_hi)
-        delta = torch.where(escalated, hi, delta)
-        L = select(escalated, L_hi, L)
-    return Factorization(
-        chol=L,
-        matrix=M + delta[:, None, None] * reg_diag,
-        delta=delta,
-        ok=ok,
-        scale=scale,
-        inv_chol=tri_inv(L) if invert else None,
-    )
+    spec = LadderSpec(factor_dtype or M.dtype, backend, min_pivot, equilibrate, invert)
+    run = Eager()
+    run.stretch("start", lambda s: ladder_start(spec, "", M, delta0))
+    run_ladder(run, spec, "")
+    run.stretch("finish", lambda s: ladder_finish(spec, "", s))
+    return ladder_factorization(spec, "", run.slots)
 
 
 def tri_inv(L: torch.Tensor) -> torch.Tensor:

@@ -56,18 +56,35 @@ JAX it runs on its own, without the suite's JAX conftest::
   evaluated eleven times, and two five-iteration solves (float32 factors,
   the kernel launched), agree bit for bit;
 * the structured entry points run on the card by default: ``optimize`` of
-  structured case9 and the batched data of the coupled two-stage problem.
+  structured case9 and the batched data of the coupled two-stage problem;
+* the dense IPM trip replayed as CUDA graphs gives the plain calls' answers
+  bit for bit: case30 b32 under ``sqpbench/configs/case30_scenarios.json``'s
+  parameters and one case30 scenario through ``optimize`` under
+  ``case30_dispatch.json``'s (statuses, iterations, QP trips, host syncs,
+  kernel launches, x), and a QP batch whose ladders escalate and bisect on
+  some lanes only (``tests/qp_batches.py``), under five option sets;
+* the graph cache keeps a b32 solve and a one-lane solve apart: b32, then
+  one lane, then the same b32 again, which captures nothing and replays.
 """
+
+import dataclasses
+import json
+import pathlib
+from collections import OrderedDict
 
 import numpy as np
 import pytest
 import torch
 
 import sqpsolver_tpu_torch as tp
+from sqpsolver_tpu_torch._lanes import any_lane
 from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
 from sqpsolver_tpu_torch.models.matpower import load_case
+from sqpsolver_tpu_torch.ops import qp_ipm
 from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, chol_tile_plain, cholesky_blocked
 from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
+
+from qp_batches import OPTS as QP_OPTS, escalating_qps
 
 SLICE = dict(
     max_iter=40, OutputFlag=0, tol_infeas=1.0e-6, tol_residual=1.0e-4,
@@ -344,3 +361,125 @@ def test_structured_entry_points_default_to_the_card(cuda):
     res = tp.optimize(single, params)  # the card by default
     assert res.success
     assert abs(res.obj_val - 5296.69) / 5296.69 < 1e-4
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _bench_parameters(config):
+    path = ROOT / "sqpbench" / "configs" / f"{config}.json"
+    return json.loads(path.read_text())["parameters"]
+
+
+def _counts():
+    return dict(
+        syncs=any_lane.syncs, trips=sum(solve_qp.loop_trips.values()),
+        launches=chol_tile.launches, captures=solve_qp.graph_captures,
+        replays=solve_qp.graph_replays,
+    )
+
+
+def _measured(fn):
+    """``fn()`` and what the counters moved by while it ran."""
+    before = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _counts()
+    return out, {k: after[k] - before[k] for k in before}
+
+
+def _b32_solve(device):
+    """case30, 32 load scenarios, the ``case30_scenarios`` configuration."""
+    case = load_case("case30")
+    nlp = acopf_polar(case)
+    theta = load_scenarios(case, 32, seed=12, spread=0.03)
+    solver = tp.make_batch_solver(nlp, tp.Parameters(**_bench_parameters("case30_scenarios")))
+    return lambda: solver(tp.batch_data(nlp, 32, theta=theta, device=device))
+
+
+def _one_lane_solve(device):
+    """One case30 scenario through ``optimize``, the model built per call, as
+    the ``case30_dispatch`` configuration runs it."""
+    case = load_case("case30")
+    theta = load_scenarios(case, 1, seed=5, spread=0.03)
+    one = dataclasses.replace(case, bus_pd=theta["pd"][0], bus_qd=theta["qd"][0])
+    params = tp.Parameters(**_bench_parameters("case30_dispatch"))
+    return lambda: tp.optimize(acopf_polar(one, scenario_batchable=False), params, device=device)
+
+
+_ANSWER = ("status", "iterations", "qp_iters_total", "x", "obj_val")
+
+
+def _answer(result):
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    return {k: host(getattr(result, k)) for k in _ANSWER}
+
+
+def _same_answers(one, two):
+    a, b = _answer(one), _answer(two)
+    for k in _ANSWER:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["b32", "one_lane"])
+def test_graphed_trip_matches_plain_calls_bit_for_bit(cuda, cell, monkeypatch):
+    monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+    solve = (_b32_solve if cell == "b32" else _one_lane_solve)(cuda)
+    monkeypatch.setattr(qp_ipm, "_GRAPHS", False)
+    plain, plain_counts = _measured(solve)
+    monkeypatch.setattr(qp_ipm, "_GRAPHS", True)
+    graphed, counts = _measured(solve)
+    assert plain_counts["captures"] == plain_counts["replays"] == 0
+    assert 0 < counts["captures"] < counts["replays"]
+    for k in ("syncs", "trips", "launches"):
+        assert counts[k] == plain_counts[k], k
+    assert (counts["launches"] > 0) == (cell == "b32")
+    _same_answers(plain, graphed)
+
+
+def _qp_fields(sol):
+    return {k: v.clone() for k, v in sol._asdict().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(QP_OPTS))
+def test_graphed_ladders_match_plain_calls(cuda, name, monkeypatch):
+    monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+    opts = qp_ipm.IpmOptions(**QP_OPTS[name])
+    batches = [escalating_qps(seed, device=cuda) for seed in (7, 9)]
+    runs = {}
+    for graphs in (False, True):
+        monkeypatch.setattr(qp_ipm, "_GRAPHS", graphs)
+        runs[graphs] = [
+            _measured(lambda: _qp_fields(solve_qp(*arrs, opts=opts))) for arrs in batches
+        ]
+    for (plain, plain_counts), (graphed, counts) in zip(runs[False], runs[True]):
+        for k in ("syncs", "trips", "launches"):
+            assert counts[k] == plain_counts[k], k
+        for k in plain:
+            assert torch.equal(plain[k], graphed[k]), k
+    (run,) = qp_ipm._PLANS.values()
+    # the K ladder escalated and bisected under graphs, and the second batch
+    # replayed the first one's
+    assert "1.K.rung" in run.graphs and "1.K.bisect_last" in run.graphs
+    assert runs[True][1][1]["replays"] > 0
+
+
+@pytest.mark.gpu
+def test_graph_cache_keeps_batch_and_one_lane_apart(cuda, monkeypatch):
+    monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+    b32, one_lane = _b32_solve(cuda), _one_lane_solve(cuda)
+    first, first_counts = _measured(b32)
+    _, lane_counts = _measured(one_lane)
+    again, counts = _measured(b32)
+    assert first_counts["captures"] > 0 and lane_counts["captures"] > 0
+    assert counts["captures"] == 0
+    assert counts["replays"] == first_counts["replays"] + first_counts["captures"]
+    for k in ("syncs", "trips", "launches"):
+        assert counts[k] == first_counts[k], k
+    lanes = {dict((k, shape) for k, _, shape, _ in key[-1])["c"][0] for key in qp_ipm._PLANS}
+    assert lanes == {32, 1}
+    _same_answers(first, again)
