@@ -11,6 +11,7 @@ rescue phase switched on.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -82,6 +83,7 @@ def make_chunked_batch_solver(
     sub_batch: int = 0,
     log: Optional[Callable[[str], None]] = None,
     rescue_fallback: bool = False,
+    _pass: str = "first",
 ) -> Callable[[NLPData], SqpResult]:
     """Batched solver advanced in host-controlled rounds of outer iterations.
 
@@ -106,7 +108,14 @@ def make_chunked_batch_solver(
     float64 factorizations.
 
     ``solve.stats`` holds the last call's ``rounds`` (= host syncs of this
-    loop), ``fallback_lanes`` and ``fallback_rounds``.
+    loop), ``fallback_lanes`` and ``fallback_rounds``.  The process-wide
+    counters on this function add up every call of every chunked solver:
+    ``make_chunked_batch_solver.rounds`` (the twin's rounds included),
+    ``fallback_lanes`` (lanes handed to a twin), ``fallback_rounds`` (the
+    twins' rounds) and ``pass_seconds`` (host seconds of each pass, ``first``
+    and ``fallback``, each from the call's start to the last host sync the
+    pass makes; ``_pass`` names the pass a solver counts as, and the twin
+    counts as ``fallback``).
 
     Left out of the JAX package's version, which sizes every device call
     against a 60 s execution limit of its TPU host and works around compiler
@@ -123,6 +132,7 @@ def make_chunked_batch_solver(
     fallback: list = []
 
     def solve(data: NLPData) -> SqpResult:
+        t0 = time.perf_counter()
         B = int(data.x0.shape[0])
         W = min(int(sub_batch), B) if sub_batch else B
         dev = data.x0.device
@@ -135,6 +145,7 @@ def make_chunked_batch_solver(
             it, done = flags[0], flags[1].astype(bool)
             active = np.where(~done & (it <= max_iter))[0]
             if active.size == 0:
+                t_end = time.perf_counter()
                 break
             # work queue: the W least-advanced active lanes form the slab
             sel = np.sort(active[np.argsort(it[active], kind="stable")][:W])
@@ -149,28 +160,45 @@ def make_chunked_batch_solver(
                 slab = solver.run_until(gather_lanes(st, idx), gather_lanes(data, idx), limit)
                 st = scatter_lanes(st, slab, idx)
             stats["rounds"] += 1
+            make_chunked_batch_solver.rounds += 1
+            if _pass == "fallback":
+                make_chunked_batch_solver.fallback_rounds += 1
         res = solver.finalize(st, data)
 
+        bad = np.empty(0, dtype=np.int64)
         if rescue_fallback and not params.qp_rescue:
-            status = res.status.cpu().numpy()
+            status = res.status.cpu().numpy()  # the first pass ends at this sync
+            t_end = time.perf_counter()
             bad = np.where(status == int(Status.ERROR_IN_STEP_COMPUTATION))[0]
-            if bad.size:
-                if log:
-                    log(f"chunked: rescue fallback for {bad.size} lanes")
-                if not fallback:
-                    fallback.append(make_chunked_batch_solver(
-                        nlp, params.replace(qp_rescue=True),
-                        chunk0=chunk0, max_chunk=max_chunk, sub_batch=sub_batch, log=log,
-                    ))
-                idx = torch.as_tensor(bad, dtype=torch.int64, device=dev)
-                res_bad = fallback[0](gather_lanes(data, idx))
-                res = scatter_lanes(res, res_bad, idx)
-                stats["fallback_lanes"] = bad.tolist()
-                stats["fallback_rounds"] = fallback[0].stats["rounds"]
+        make_chunked_batch_solver.pass_seconds[_pass] += t_end - t0
+        if bad.size:
+            if log:
+                log(f"chunked: rescue fallback for {bad.size} lanes")
+            if not fallback:
+                fallback.append(make_chunked_batch_solver(
+                    nlp, params.replace(qp_rescue=True),
+                    chunk0=chunk0, max_chunk=max_chunk, sub_batch=sub_batch, log=log,
+                    _pass="fallback",
+                ))
+            make_chunked_batch_solver.fallback_lanes += int(bad.size)
+            idx = torch.as_tensor(bad, dtype=torch.int64, device=dev)
+            res_bad = fallback[0](gather_lanes(data, idx))
+            res = scatter_lanes(res, res_bad, idx)
+            stats["fallback_lanes"] = bad.tolist()
+            stats["fallback_rounds"] = fallback[0].stats["rounds"]
         return res
 
     solve.stats = dict(rounds=0, fallback_lanes=[], fallback_rounds=0)
     return solve
+
+
+#: rounds (one host sync each) of every chunked solver so far
+make_chunked_batch_solver.rounds = 0
+#: host seconds of each pass so far: the first pass, and the rescue fallback
+make_chunked_batch_solver.pass_seconds = {"first": 0.0, "fallback": 0.0}
+#: lanes handed to the rescue fallback so far, and the fallback's rounds
+make_chunked_batch_solver.fallback_lanes = 0
+make_chunked_batch_solver.fallback_rounds = 0
 
 
 def summarize_batch(raw: SqpResult) -> dict:
