@@ -11,8 +11,8 @@ arithmetic, term for term as in the JAX package.
 Ported: ``init_state`` with the initial linear-feasibility projection,
 ``stage_refresh``, ``convexify`` (``ladder``, ``eigh`` on float32,
 ``power`` (the Lanczos bound), ``gershgorin``), ``subproblem_inputs``,
-``solve_subproblem``, ``triage_subproblem``, the second-order correction
-(``solve_soc``), ``stages_post_qp`` with FR and the status rules, and
+``triage_subproblem``, the second-order correction (``soc_inputs``),
+``stages_post_qp`` and ``stages_accept`` with FR and the status rules, and
 ``finalize``; ``qp_rescue`` and ``mixed_polish`` hand the IPM its float64
 phase 2.  The solve function carries its three stages as ``init_state``,
 ``run_until`` and ``finalize`` for the chunked batch solver and the
@@ -20,6 +20,19 @@ checkpointed solve.  The iteration printer (``OutputFlag``) prints the JAX
 package's lines for a one-lane solve; per-iteration statistics
 (``StatisticsFlag``) fill fixed ``(B, max_iter + 1)`` tensors, one row per
 iteration of each lane.
+
+``run_until``'s iteration is written as stretches between its host points
+(``ops/stretches.py``): ``refresh`` (the evaluations, the convexified
+Hessian and the QP's inputs), the QP call, ``post`` (the post-QP stages,
+to the end of the iteration or to the SOC's QP call), and with ``use_soc``
+the SOC's QP call and ``soc``; the ``eigh`` shift's eigenvalue call splits
+``refresh`` at an ``inputs`` stretch, a one-lane verbose solve prints its
+line after ``post``, and the loop's sync reads the mask that the last
+stretch wrote.  For the dense operator on a CUDA device each stretch is
+replayed as a CUDA graph, kept by the solver (the graphs read its model's
+constants) for each input shape; ``stage_graphs`` counts their captures
+and replays.  The structured mode and every solve on the CPU run the same
+stretches as plain calls.
 
 Structured mode (``kkt_structured=True``, an NLP with a ``structure``): the
 derivatives arrive coloring-compressed (``nJ`` Jacobian JVPs and ``nH``
@@ -33,6 +46,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import types
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -43,6 +58,7 @@ from .._lanes import amax0, any_lane, dot, map_lanes, mv, select, true_float32_m
 from ..nlp import NLP, NLPData, initial_point
 from ..ops.kkt_bbd import BbdOperator, BlockMaps, HessBlocks, part_groups
 from ..ops.qp_ipm import IpmOptions, solve_qp, solve_qp_op
+from ..ops.stretches import Eager, Graphed, flat_trees
 from ..parameters import Parameters
 from ..status import Status
 from ..structure import build_block_structure
@@ -56,6 +72,20 @@ from .common import (
 #: consecutive stalled-QP iterations tolerated before a lane fails with
 #: ERROR_IN_STEP_COMPUTATION (each stall halves the TR)
 _QP_BAD_MAX = 3
+
+#: CUDA graphs of the iteration's stretches captured, and replays of them, by
+#: every solver so far (their hit share is replays / (replays + captures));
+#: ``solve_qp.graph_captures`` / ``graph_replays`` count the QP trip's apart
+stage_graphs = types.SimpleNamespace(graph_captures=0, graph_replays=0)
+#: False runs the iteration's stretches as plain calls on the card too (for
+#: tests)
+_STAGE_GRAPHS = True
+#: the share of the card's memory one solver's stage graphs may hold; the
+#: least recently used go first
+_STAGE_MEMORY_SHARE = 0.125
+
+#: the state fields that the refresh of an iteration evaluates anew
+_REFRESHED = ("f", "df", "E", "J", "H", "prim_infeas", "dual_infeas")
 
 
 def _inf_norm(x):
@@ -362,8 +392,10 @@ def make_solver(
             return block_maps(H.H_ss).h_add_diag(H, shift)
         return H + shift[:, None, None] * torch.eye(n, dtype=dtype, device=H.device)
 
-    def convexify(H):
-        """Shift an indefinite Lagrangian Hessian toward PSD (per lane)."""
+    def convexify(H, lmin32=None):
+        """Shift an indefinite Lagrangian Hessian toward PSD (per lane).
+        The ``eigh`` shift takes the float32 smallest eigenvalues ``lmin32``
+        of ``H`` from :func:`smallest_eig32`."""
         if not exact_hessian:
             return H
         if params.hessian_shift == "ladder":
@@ -383,7 +415,6 @@ def make_solver(
                 iters=(params.hessian_shift_iters or min(n, 64)),
             )
         else:  # "eigh": float32 smallest eigenvalue, padded by f32 eps * |H|
-            lmin32 = torch.linalg.eigvalsh(H.to(torch.float32))[:, 0]
             pad = 4.0e-7 * amax0(torch.abs(H).flatten(-2))
             lmin = lmin32.to(dtype) - pad
         if mixed or structured:  # float32 factors need a curvature floor
@@ -393,6 +424,13 @@ def make_solver(
             floor = 1e-8 * (1.0 + torch.abs(lmin))
         shift = torch.clamp_min(-lmin, 0.0) + torch.where(lmin < floor, floor, 0.0)
         return _add_diag(H, shift)
+
+    #: the dense ``eigh`` shift's eigenvalue call is a host point of the
+    #: iteration (it reads its status on the host)
+    eig_host = exact_hessian and params.hessian_shift == "eigh" and not structured
+
+    def smallest_eig32(H32):
+        return torch.linalg.eigvalsh(H32)[:, 0]
 
     def _adaptive_qp_tol(st: SqpState):
         if params.qp_tol_adaptive <= 0.0:
@@ -426,13 +464,6 @@ def make_solver(
             Q = torch.where(st.fr[:, None, None], 0.0, H_qp)
         return Q, c, rl, ru, lb, ub, w, init, _adaptive_qp_tol(st), freed
 
-    def solve_subproblem(st: SqpState, d: NLPData, H_qp):
-        """Normal/FR trust-region QP: inputs -> solve -> triage.  Done lanes
-        skip (their IPM takes no trips)."""
-        Q, c, rl, ru, lb, ub, w, init, tol_dyn, freed = subproblem_inputs(st, d, H_qp)
-        sol = qp_solve(Q, c, st.J, rl, ru, lb, ub, w, st.done, init, tol_dyn)
-        return triage_subproblem(st, d, sol, freed)
-
     def triage_subproblem(st: SqpState, d: NLPData, sol, freed):
         """TR-vs-true-bound dual masking, the infeasibility certificate and
         the stalled-QP signal."""
@@ -452,22 +483,23 @@ def make_solver(
         qp_bad = rough_exit & ~infeasible
         return sol, infeasible, qp_bad
 
-    def solve_soc(st: SqpState, E_trial, d: NLPData, H_qp, try_soc, duals):
+    def soc_inputs(st: SqpState, E_trial, d: NLPData, try_soc, duals):
         """Second-order correction QP: the subproblem with its rows shifted
         by the curvature residual at the trial point, E_soc = g(x+p) - J p;
         its solution is the whole corrected step (the JAX package's fix of
-        the reference's double-added base step).  Lanes not trying skip."""
+        the reference's double-added base step).  Lanes not trying skip.
+        Its inputs besides ``H_qp``, ``st.df`` and ``st.J``."""
         E_soc = E_trial - jac_mv(st.J, st.p)
         lb, ub = _trust_region_box(st.x, d.x_l, d.x_u, st.tr)
         init = None
         if params.qp_warm_start:
             y_w, zl_w, zu_w = duals
             init = dict(p=st.p, y=y_w, zl=zl_w, zu=zu_w, on=try_soc)
-        sol = qp_solve(
-            H_qp, st.df, st.J, d.g_l - E_soc, d.g_u - E_soc, lb, ub,
-            torch.full_like(st.E, w_big), ~try_soc, init, _adaptive_qp_tol(st),
+        return dict(
+            rl=d.g_l - E_soc, ru=d.g_u - E_soc, lb=lb, ub=ub,
+            w=torch.full_like(st.E, w_big), skip=~try_soc, init=init,
+            tol=_adaptive_qp_tol(st),
         )
-        return sol.p, sol.iters
 
     def qmodel(st: SqpState, p, d: NLPData, with_step):
         """q(p) = df'p + 1/2 p'Hp + mu * ||linearized viol||_1."""
@@ -482,21 +514,25 @@ def make_solver(
         return qval + st.mu * viol1(E_lin, x_t, d)
 
     # ------------------------------------------------------------ logging ---
-    def emit_log(st: SqpState):
-        """One iteration line of a one-lane solve: the ten values it prints
-        come to the host in one transfer."""
+    def log_values(st: SqpState):
+        """The values of a one-lane solve's iteration line, on the device
+        (None where nothing is printed)."""
         if not log_iters or st.x.shape[0] != 1:
-            return
+            return None
         lmax = torch.maximum(
             _inf_norm(st.lam), torch.maximum(_inf_norm(st.mult_lo), _inf_norm(st.mult_up))
         )
-        vals = torch.stack([
+        return torch.stack([
             v[0].to(torch.float64) for v in (
                 st.iter, st.step_accepted, st.fr, st.f, st.phi, st.mu, lmax, st.tr,
                 _inf_norm(st.p), st.prim_infeas, st.dual_infeas,
             )
-        ]).tolist()
-        it, acc, fr, f, phi, mu, lmax, tr, pnorm, pr, du = vals
+        ])
+
+    def print_log(vals):
+        """Print the iteration line: its values come to the host in one
+        transfer."""
+        it, acc, fr, f, phi, mu, lmax, tr, pnorm, pr, du = vals.tolist()
         mark = "FR" if fr else "  "
         a = "a" if acc else "r"
         pr_s = f"{pr:6.8e}" if math.isfinite(pr) else "           Inf"
@@ -552,15 +588,12 @@ def make_solver(
             dual_infeas=select(acc, dual, st.dual_infeas),
         )
 
-    def body(st: SqpState, d: NLPData) -> SqpState:
-        st = stage_refresh(st, d)
-        H_qp = convexify(st.H)
-        sol, qp_infeasible, qp_bad = solve_subproblem(st, d, H_qp)
-        return stages_post_qp(st, d, H_qp, sol, qp_infeasible, qp_bad)
-
-    def stages_post_qp(st: SqpState, d: NLPData, H_qp, sol, qp_infeasible, qp_bad) -> SqpState:
-        """Dual/penalty bookkeeping, status triage, merit/convergence tests,
-        step acceptance, TR update, counters."""
+    def stages_post_qp(st: SqpState, d: NLPData, sol, qp_infeasible, qp_bad):
+        """Dual/penalty bookkeeping, status triage, merit/convergence tests
+        and the trial step's merit, up to the SOC: the state and what
+        :func:`stages_accept` reads besides (``ctx``; with ``use_soc``, the
+        SOC QP's inputs under ``soc_in``; the iteration line's values under
+        ``log``)."""
         failed = qp_infeasible | qp_bad
         fc = _col(failed)
         p = torch.where(fc, 0.0, sol.p)
@@ -639,7 +672,7 @@ def make_solver(
         phi_new = merit(st.f, st.E, st.x, st.mu, st.fr, d)
         st = st.replace(phi=torch.where(live_step & st.step_accepted, phi_new, st.phi))
 
-        emit_log(st)
+        log = log_values(st)
         st = st.replace(stats=record_stats(st, sol.iters))
 
         # 5. tiny direction: in FR exit restoration (or declare infeasible
@@ -690,14 +723,27 @@ def make_solver(
         new_lam = st.lam + p_lam
         new_mlo = st.mult_lo + p_mlo
         new_mup = st.mult_up + p_mup
-        new_x = x_t
+        ctx = dict(
+            live=live, live_step=live_step, p_norm=p_norm, on_boundary_loose=on_boundary_loose,
+            accept=accept, q0=q0, x_t=x_t, new_lam=new_lam, new_mlo=new_mlo, new_mup=new_mup,
+        )
+        out = dict(ctx=ctx, log=log)
+        if use_soc:
+            ctx["try_soc"] = ~accept & (viol1(E_t, x_t, d) > 0.0) & ~st.fr & live_step
+            out["soc_in"] = soc_inputs(st, E_t, d, ctx["try_soc"], (new_lam, new_mlo, new_mup))
+        return st, out
+
+    def stages_accept(st: SqpState, d: NLPData, ctx: dict, soc=None) -> SqpState:
+        """The SOC's merit and acceptance (``soc``: its QP's step and
+        trips), the TR update and the counters."""
+        live, live_step, p_norm = ctx["live"], ctx["live_step"], ctx["p_norm"]
+        accept, q0 = ctx["accept"], ctx["q0"]
+        new_x = ctx["x_t"]
         soc_accept = torch.zeros_like(accept)
         soc_qp_iters = torch.zeros_like(st.iter)
         if use_soc:
-            try_soc = ~accept & (viol1(E_t, x_t, d) > 0.0) & ~st.fr & live_step
-            p_soc, soc_qp_iters = solve_soc(
-                st, E_t, d, H_qp, try_soc, (new_lam, new_mlo, new_mup)
-            )
+            try_soc = ctx["try_soc"]
+            p_soc, soc_qp_iters = soc["p"], soc["iters"]
             x_soc = st.x + p_soc
             f_soc, E_soc_t = nlp.obj_cons(x_soc, d.theta)
             ared_soc = st.phi - merit(f_soc, E_soc_t, x_soc, st.mu, st.fr, d)
@@ -708,16 +754,16 @@ def make_solver(
 
         # TR update: expand only on a plain accept that hit the boundary
         tr_exp = torch.where(
-            accept & on_boundary_loose, torch.clamp_max(2.0 * st.tr, tr_max), st.tr
+            accept & ctx["on_boundary_loose"], torch.clamp_max(2.0 * st.tr, tr_max), st.tr
         )
         tr_shrink = torch.clamp_min(0.5 * torch.minimum(st.tr, p_norm), 0.1 * tol_dir)
         new_tr = torch.where(any_accept, tr_exp, tr_shrink)
         upd = live_step & any_accept
         st = st.replace(
             x=select(upd, new_x, st.x),
-            lam=select(upd, new_lam, st.lam),
-            mult_lo=select(upd, new_mlo, st.mult_lo),
-            mult_up=select(upd, new_mup, st.mult_up),
+            lam=select(upd, ctx["new_lam"], st.lam),
+            mult_lo=select(upd, ctx["new_mlo"], st.mult_lo),
+            mult_up=select(upd, ctx["new_mup"], st.mult_up),
             tr=torch.where(live_step, new_tr, st.tr),
             step_accepted=torch.where(live_step, any_accept, st.step_accepted),
             n_accept=st.n_accept + upd.to(torch.int32),
@@ -802,14 +848,126 @@ def make_solver(
             stats=init_stats(B, dev),
         )
 
+    # ------------------------------------------------ the loop's stretches --
+    # Each reads named trees of the run (``get``): the loop state ``st``, the
+    # data ``d``, ``limit``, the loop's mask ``active``, and what the
+    # iteration made so far; it returns new ones.
+
+    def next_mask(st: SqpState, limit):
+        return dict(active=~st.done & (st.iter <= limit))
+
+    def end_iteration(get, st: SqpState) -> dict:
+        """The lanes of the loop's mask take the iteration's state; the next
+        sync's mask."""
+        st = _select_tree(get("active"), st, get("st"))
+        return dict(st=st, **next_mask(st, get("limit")))
+
+    def refreshed(get) -> SqpState:
+        return get("st").replace(**get("fresh"))
+
+    def qp_inputs(st: SqpState, d: NLPData, H_qp) -> dict:
+        Q, c, rl, ru, lb, ub, w, init, tol_dyn, freed = subproblem_inputs(st, d, H_qp)
+        out = dict(
+            qp_in=dict(Q=Q, c=c, rl=rl, ru=ru, lb=lb, ub=ub, w=w, init=init, tol=tol_dyn),
+            freed=freed,
+        )
+        if use_soc:
+            out["H_qp"] = H_qp
+        return out
+
+    def s_refresh(get) -> dict:
+        """Evaluations at the accepted steps, the convexified Hessian and
+        the QP's inputs (with the ``eigh`` shift, up to its eigenvalue
+        call)."""
+        st = stage_refresh(get("st"), get("d"))
+        out = dict(fresh={k: getattr(st, k) for k in _REFRESHED})
+        if eig_host:
+            out["H32"] = st.H.to(torch.float32)
+        else:
+            out.update(qp_inputs(st, get("d"), convexify(st.H)))
+        return out
+
+    def s_inputs(get) -> dict:
+        st = refreshed(get)
+        return qp_inputs(st, get("d"), convexify(st.H, get("lmin32")))
+
+    def s_post(get) -> dict:
+        """Triage of the QP's answer and the post-QP stages, to the end of
+        the iteration or, with ``use_soc``, to the SOC's QP call."""
+        base, d = refreshed(get), get("d")
+        sol, qp_infeasible, qp_bad = triage_subproblem(base, d, get("qp"), get("freed"))
+        st, out = stages_post_qp(base, d, sol, qp_infeasible, qp_bad)
+        if use_soc:
+            out["mid"] = {
+                f.name: getattr(st, f.name) for f in dataclasses.fields(SqpState)
+                if getattr(st, f.name) is not getattr(base, f.name)
+            }
+            return out
+        return dict(end_iteration(get, stages_accept(st, d, out["ctx"])), log=out["log"])
+
+    def s_soc(get) -> dict:
+        st = refreshed(get).replace(**get("mid"))
+        return end_iteration(get, stages_accept(st, get("d"), get("ctx"), get("soc")))
+
+    plans: "OrderedDict[tuple, Graphed]" = OrderedDict()
+
+    def stage_runner(trees: dict):
+        """The run of one ``run_until`` call: its stretches replayed as CUDA
+        graphs for the dense operator on a CUDA device, else plain calls.
+        Graphs belong to this solver (they read its model's constants) and
+        are kept by what they depend on: device, float32 matmul precision,
+        and each input's name, dtype, shape and strides."""
+        dev = trees["st"].x.device
+        if structured or not (_STAGE_GRAPHS and Graphed.runs_on(dev)):
+            run = Eager()
+        else:
+            key = (
+                dev, torch.get_float32_matmul_precision(),
+                tuple(
+                    (k, v.dtype, tuple(v.shape), v.stride()) for k, v in flat_trees(trees).items()
+                ),
+            )
+            run = plans.pop(key, None) or Graphed(dev, stage_graphs)
+            plans[key] = run
+            budget = _STAGE_MEMORY_SHARE * Graphed.device_memory(dev)
+            while len(plans) > 1 and sum(r.nbytes for r in plans.values()) > budget:
+                plans.popitem(last=False)
+        run.load_trees(trees)
+        return run
+
     # ------------------------------------------------------------- driver ---
     def run_until(st: SqpState, d: NLPData, limit) -> SqpState:
-        """Advance every live lane until done or ``iter > limit``."""
-        while True:
-            active = ~st.done & (st.iter <= limit)
-            if not any_lane(active):
-                return st
-            st = _select_tree(active, body(st, d), st)
+        """Advance every live lane until done or ``iter > limit``.  The
+        iteration runs as stretches between its host points: the QP call,
+        the ``eigh`` shift's eigenvalue call, the SOC's QP call, the
+        iteration line (a one-lane verbose solve) and the loop's sync."""
+        limit_t = torch.full((), limit, dtype=st.iter.dtype, device=st.iter.device)
+        run = stage_runner(dict(st=st, d=d, limit=limit_t))
+        run.tree_stretch("start", lambda get: next_mask(get("st"), get("limit")))
+        while run.sync("active"):
+            run.tree_stretch("refresh", s_refresh)
+            if eig_host:
+                run.factor(smallest_eig32, "H32", "lmin32")
+                run.tree_stretch("inputs", s_inputs)
+            q, fresh = run.tree("qp_in"), run.tree("fresh")
+            sol = qp_solve(
+                q["Q"], q["c"], fresh["J"], q["rl"], q["ru"], q["lb"], q["ub"], q["w"],
+                run.tree("st.done"), q["init"], q["tol"],
+            )
+            run.load_trees(dict(qp=sol))
+            run.tree_stretch("post", s_post)
+            log = run.tree("log")
+            if log is not None:
+                print_log(log)
+            if use_soc:
+                q, fresh = run.tree("soc_in"), run.tree("fresh")
+                sol = qp_solve(
+                    run.tree("H_qp"), fresh["df"], fresh["J"], q["rl"], q["ru"], q["lb"],
+                    q["ub"], q["w"], q["skip"], q["init"], q["tol"],
+                )
+                run.load_trees(dict(soc=dict(p=sol.p, iters=sol.iters)))
+                run.tree_stretch("soc", s_soc)
+        return run.export_tree("st")
 
     def finalize(st: SqpState, d: NLPData) -> SqpResult:
         limit_ret = torch.where(
@@ -861,4 +1019,6 @@ def make_solver(
     solve.init_state = staged(init_state)
     solve.run_until = staged(run_until)
     solve.finalize = staged(finalize)
+    #: this solver's runs of graphed stretches, by what their graphs depend on
+    solve.stage_plans = plans
     return solve

@@ -18,14 +18,70 @@ sync (:meth:`Eager.sync`, one ``any_lane``).
   between the replays, as they are counted and recorded there.
 
 A stretch must be a pure function of its slots: it writes nothing in place,
-reads no value on the host and makes no tensor from host data.
+reads no value on the host and makes no tensor from host data.  A stretch
+whose capture fails all the same (a model that makes a tensor from host data
+at every call) runs as a plain call on the slots from then on.
+
+Slots may also hold named *trees* (a tensor, None, a dict, a NamedTuple or a
+dataclass of such, as the SQP state is): :meth:`Eager.load_trees` and
+:meth:`Eager.tree_stretch` keep each tree's tensors under dotted names
+(``st.x``, ``st.stats.f``) and rebuild the tree from them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .._lanes import any_lane
+
+
+#: a tensor's place in a tree's skeleton
+_LEAF = object()
+
+
+def _items(tree):
+    if isinstance(tree, dict):
+        return tree.items()
+    if dataclasses.is_dataclass(tree):
+        return ((f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    return tree._asdict().items()
+
+
+def _flatten(name: str, tree, out: dict) -> None:
+    if torch.is_tensor(tree):
+        out[name] = tree
+    elif tree is not None:
+        for k, v in _items(tree):
+            _flatten(f"{name}.{k}", v, out)
+
+
+def flat_trees(trees: dict) -> dict:
+    """The tensors of named trees under their dotted slot names."""
+    out: dict = {}
+    for name, tree in trees.items():
+        _flatten(name, tree, out)
+    return out
+
+
+def _skeleton(tree):
+    """The tree with :data:`_LEAF` in place of each tensor."""
+    if torch.is_tensor(tree):
+        return _LEAF
+    if tree is None:
+        return None
+    parts = {k: _skeleton(v) for k, v in _items(tree)}
+    return parts if isinstance(tree, dict) else type(tree)(**parts)
+
+
+def _rebuild(name: str, skel, slots: dict):
+    if skel is _LEAF:
+        return slots[name]
+    if skel is None:
+        return None
+    parts = {k: _rebuild(f"{name}.{k}", v, slots) for k, v in _items(skel)}
+    return parts if isinstance(skel, dict) else type(skel)(**parts)
 
 
 class Eager:
@@ -35,6 +91,8 @@ class Eager:
 
     def __init__(self):
         self.slots: dict = {}
+        #: the skeleton of each named tree in the slots
+        self.skeletons: dict = {}
 
     def load(self, tensors: dict) -> None:
         """Set the named inputs of a run."""
@@ -55,6 +113,51 @@ class Eager:
     def export(self, t: torch.Tensor) -> torch.Tensor:
         """A slot's value as the caller may keep it."""
         return t
+
+    def load_trees(self, trees: dict) -> None:
+        """Set named trees as inputs of a run."""
+        self.skeletons.update((name, _skeleton(tree)) for name, tree in trees.items())
+        self.load(flat_trees(trees))
+
+    def tree(self, name: str, slots: dict = None):
+        """The named tree (or plain slot) as the slots hold it."""
+        slots = self.slots if slots is None else slots
+        return _rebuild(name, self.skeletons.get(name, _LEAF), slots)
+
+    def tree_stretch(self, name: str, fn) -> None:
+        """Run the stretch ``fn`` under ``name``: ``fn`` gets a reader of
+        named trees and returns a dict of named trees."""
+
+        def flat_fn(slots):
+            trees = fn(lambda key: self.tree(key, slots))
+            self.skeletons.update((k, _skeleton(tree)) for k, tree in trees.items())
+            return flat_trees(trees)
+
+        self.stretch(name, flat_fn)
+
+    def export_tree(self, name: str):
+        """A named tree as the caller may keep it."""
+        flat = flat_trees({name: self.tree(name)})
+        return _rebuild(name, self.skeletons[name], {k: self.export(v) for k, v in flat.items()})
+
+
+#: the stream that every capture on a device runs on: what a first call
+#: makes lazily for a stream (a cuBLAS workspace, tens of MB on this card)
+#: is made once, not once for each run of graphs
+_CAPTURE_STREAMS: dict = {}
+
+
+class _CaptureFailed(RuntimeError):
+    """A stretch that runs as a plain call could not be captured."""
+
+
+def _end_capture(g):
+    """End ``g``'s capture; the error that ending it raised, or None."""
+    try:
+        g.capture_end()
+    except RuntimeError as err:
+        return err
+    return None
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -99,8 +202,8 @@ def _commit(slots: dict, out: dict) -> None:
 
 
 class Graphed(Eager):
-    """Runs each stretch from a CUDA graph, captured at its first run on a
-    stream of its own.  ``tally`` gets ``graph_captures`` and
+    """Runs each stretch from a CUDA graph, captured at its first run on the
+    device's capture stream.  ``tally`` gets ``graph_captures`` and
     ``graph_replays`` added to at every capture and replay; ``nbytes`` is
     the device memory the captures reserved."""
 
@@ -111,7 +214,6 @@ class Graphed(Eager):
         self.device = device
         self.tally = tally
         self.graphs: dict = {}
-        self.stream = None
         self.nbytes = 0
 
     @staticmethod
@@ -132,40 +234,55 @@ class Graphed(Eager):
                 slot.copy_(v)
 
     def stretch(self, name: str, fn) -> None:
-        g = self.graphs.get(name)
-        if g is None:
-            self.graphs[name] = self._capture(fn)
-            self.tally.graph_captures += 1
+        if name not in self.graphs:
+            try:
+                self.graphs[name] = self._capture(fn)
+                self.tally.graph_captures += 1
+                return
+            except _CaptureFailed:
+                self.graphs[name] = None
+        g = self.graphs[name]
+        if g is None:  # its capture failed: a plain call on the slots
+            _commit(self.slots, fn(self.slots))
         else:
             g.replay()
             self.tally.graph_replays += 1
 
     def _capture(self, fn):
-        """Capture ``fn`` and run it once; returns what replays it."""
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.device)
+        """Capture ``fn`` and run it once; returns what replays it.  Raises
+        :class:`_CaptureFailed`, with nothing run, where only the capture
+        fails."""
+        side = _CAPTURE_STREAMS.get(self.device)
+        if side is None:
+            side = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(self.device)
         current = torch.cuda.current_stream(self.device)
-        side = self.stream
         side.wait_stream(current)
         reserved = torch.cuda.memory_reserved(self.device)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            # one plain run first, on the capture stream: what is made lazily
-            # at a first call (a cuBLAS workspace for this stream) is made
-            # outside the capture
-            fn(self.slots)
-            g.capture_begin()
-            try:
-                _commit(self.slots, fn(self.slots))
-            except BaseException:
-                # end the broken capture; its own error hides the first one
+        before = set(self.slots)
+        try:
+            with torch.cuda.stream(side):
+                # one plain run first, on the capture stream: what is made
+                # lazily at a first call (a cuBLAS workspace for this stream,
+                # a model's constants) is made outside the capture
+                fn(self.slots)
+                g.capture_begin()
                 try:
-                    g.capture_end()
-                except RuntimeError:
-                    pass
-                raise
-            g.capture_end()
-        current.wait_stream(side)
+                    _commit(self.slots, fn(self.slots))
+                    failure = None
+                except RuntimeError as err:
+                    failure = err
+                finally:
+                    # a failed capture ends too; ending reports what
+                    # invalidated one
+                    end_failure = _end_capture(g)
+                failure = failure or end_failure
+        finally:
+            current.wait_stream(side)
+        if failure is not None:
+            for k in set(self.slots) - before:
+                del self.slots[k]
+            raise _CaptureFailed from failure
         self.nbytes += max(0, torch.cuda.memory_reserved(self.device) - reserved)
         g.replay()
         return g

@@ -1,10 +1,14 @@
 """A small batch of dense elastic QPs whose regularization ladders escalate
 and bisect on some lanes only, and the IPM option sets it is solved under
 (``tests/test_torch_qp_trip.py`` on the CPU, ``tests/test_torch_gpu.py`` on
-the card)."""
+the card); and the CPU stand-in for a CUDA-graphed run of stretches."""
+
+import types
 
 import numpy as np
 import torch
+
+from sqpsolver_tpu_torch.ops import stretches
 
 INF = np.inf
 N, M = 10, 14
@@ -46,3 +50,24 @@ OPTS = {
     "polish": dict(factor_dtype="float32", kkt_backend="pallas", ir_steps=2, tol=1e-8,
                    polish_iters=8, max_iter=30, schur_cap=8),
 }
+
+
+class CpuReplay(stretches.Graphed):
+    """The graph path's bookkeeping on the CPU: a replay runs the stretch
+    function its capture ran, with copy-in writes to the slots."""
+
+    @staticmethod
+    def runs_on(device):
+        return device.type == "cpu"
+
+    @staticmethod
+    def device_memory(device):
+        return 1 << 40
+
+    def _capture(self, fn):
+        stretches._commit(self.slots, fn(self.slots))
+
+        def replay():
+            stretches._commit(self.slots, fn(self.slots))
+
+        return types.SimpleNamespace(replay=replay)

@@ -64,7 +64,17 @@ JAX it runs on its own, without the suite's JAX conftest::
   kernel launches, x), and a QP batch whose ladders escalate and bisect on
   some lanes only (``tests/qp_batches.py``), under five option sets;
 * the graph cache keeps a b32 solve and a one-lane solve apart: b32, then
-  one lane, then the same b32 again, which captures nothing and replays.
+  one lane, then the same b32 again, which captures nothing and replays;
+* the SQP-TR iteration's stretches replayed as CUDA graphs give the plain
+  calls' answers bit for bit (statuses, iterations, QP trips, x, objectives,
+  multipliers), with the same host syncs, QP trips, kernel launches and QP
+  trip graph counts: case30 b32 and one case30 scenario through
+  ``optimize`` (the ``eigh`` shift and the SOC) as above, and two case118
+  scenarios through the chunked solver in slabs of two lanes (one where one
+  is left), its float64 rescue fallback included; a second call replays
+  the stage graphs, and hs008 (an objective that makes a tensor from host
+  data, whose stretches cannot be captured) runs them as plain calls and
+  ends as with the graphs off.
 """
 
 import dataclasses
@@ -78,6 +88,7 @@ import torch
 
 import sqpsolver_tpu_torch as tp
 from sqpsolver_tpu_torch._lanes import any_lane
+from sqpsolver_tpu_torch.algorithms import sqp_tr
 from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
 from sqpsolver_tpu_torch.models.matpower import load_case
 from sqpsolver_tpu_torch.ops import qp_ipm
@@ -375,7 +386,8 @@ def _counts():
     return dict(
         syncs=any_lane.syncs, trips=sum(solve_qp.loop_trips.values()),
         launches=chol_tile.launches, captures=solve_qp.graph_captures,
-        replays=solve_qp.graph_replays,
+        replays=solve_qp.graph_replays, stage_captures=sqp_tr.stage_graphs.graph_captures,
+        stage_replays=sqp_tr.stage_graphs.graph_replays,
     )
 
 
@@ -408,18 +420,19 @@ def _one_lane_solve(device):
 
 
 _ANSWER = ("status", "iterations", "qp_iters_total", "x", "obj_val")
+_MULTIPLIERS = ("mult_g", "mult_x_L", "mult_x_U")
 
 
-def _answer(result):
+def _answer(result, fields=_ANSWER):
     def host(a):
         return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
-    return {k: host(getattr(result, k)) for k in _ANSWER}
+    return {k: host(getattr(result, k)) for k in fields}
 
 
-def _same_answers(one, two):
-    a, b = _answer(one), _answer(two)
-    for k in _ANSWER:
+def _same_answers(one, two, fields=_ANSWER):
+    a, b = _answer(one, fields), _answer(two, fields)
+    for k in fields:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
@@ -483,3 +496,64 @@ def test_graph_cache_keeps_batch_and_one_lane_apart(cuda, monkeypatch):
     lanes = {dict((k, shape) for k, _, shape, _ in key[-1])["c"][0] for key in qp_ipm._PLANS}
     assert lanes == {32, 1}
     _same_answers(first, again)
+
+
+def _case118_chunked_solve(device):
+    """Two case118 scenarios through the chunked solver, two lanes a slab
+    and one where one lane is left, with the rescue fallback: the
+    ``case118_scenarios`` configuration's parameters, 12 iterations."""
+    case = load_case("case118")
+    nlp = acopf_polar(case)
+    theta = {k: v[[0, 8]] for k, v in load_scenarios(case, 16, seed=7, spread=0.03).items()}
+    config = dict(_bench_parameters("case118_scenarios"), max_iter=12)
+    config.pop("sub_batch"), config.pop("rescue_fallback")
+    solver = tp.make_chunked_batch_solver(
+        nlp, tp.Parameters(**config), sub_batch=2, rescue_fallback=True
+    )
+    return lambda: solver(tp.batch_data(nlp, 2, theta=theta, device=device))
+
+
+def _hs008_solve(device):
+    """hs008 through one solver (the default parameters); the solve keeps
+    its solver as ``solve.solver``."""
+    from sqpsolver_tpu_torch.models.hs import hs_problem
+
+    nlp = hs_problem("hs008").nlp
+    solver = tp.make_solver(nlp, tp.Parameters(OutputFlag=0))
+
+    def solve():
+        return solver(tp.batch_data(nlp, 1, device=device))
+
+    solve.solver = solver
+    return solve
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["b32", "one_lane", "case118_chunked", "hs008"])
+def test_graphed_stages_match_plain_calls_bit_for_bit(cuda, cell, monkeypatch):
+    solve = dict(
+        b32=_b32_solve, one_lane=_one_lane_solve, case118_chunked=_case118_chunked_solve,
+        hs008=_hs008_solve,
+    )[cell](cuda)
+    runs = []
+    for graphs in (False, True, True):
+        # each run captures the QP trip's graphs anew, so that its counts compare
+        monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+        monkeypatch.setattr(sqp_tr, "_STAGE_GRAPHS", graphs)
+        runs.append(_measured(solve))
+    (plain, plain_counts), (graphed, counts), (again, again_counts) = runs
+    assert plain_counts["stage_captures"] == plain_counts["stage_replays"] == 0
+    for k in ("syncs", "trips", "launches", "captures", "replays"):
+        assert counts[k] == plain_counts[k] == again_counts[k], k
+    for one in (graphed, again):
+        _same_answers(plain, one, _ANSWER + _MULTIPLIERS)
+    # (hs008 may end in 3 iterations: one capture and 2 replays a stretch)
+    assert 0 < counts["stage_captures"] <= counts["stage_replays"]
+    assert again_counts["stage_replays"] > 0
+    if cell != "one_lane":  # optimize builds its solver, and its graphs, per call
+        assert again_counts["stage_captures"] == 0
+    if cell == "hs008":
+        # the objective's host data fails the capture of each stretch that
+        # evaluates it: those run as plain calls, the others replay
+        (run,) = solve.solver.stage_plans.values()
+        assert {k for k, g in run.graphs.items() if g is None} == {"refresh", "post"}

@@ -20,8 +20,6 @@ a float64 polish phase after a float32 one.
   for bit, the same syncs, and replays where the shapes repeat.
 """
 
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -29,7 +27,7 @@ import torch
 from sqpsolver_tpu_torch._lanes import any_lane
 from sqpsolver_tpu_torch.ops import chol_blocked, qp_ipm, stretches
 
-from qp_batches import M, N, OPTS, escalating_qps as _qps
+from qp_batches import M, N, OPTS, CpuReplay, escalating_qps as _qps
 
 T, F = True, False
 #: recorded on seed 7 by the IPM before its trip was split into stretches
@@ -94,27 +92,6 @@ def test_split_trip_gives_the_parents_counts(name, monkeypatch):
     assert any(k.endswith("K.bisect_last") for k in names)
 
 
-class _CpuReplay(stretches.Graphed):
-    """The graph path's bookkeeping on the CPU: a replay runs the stretch
-    function its capture ran, with copy-in writes to the slots."""
-
-    @staticmethod
-    def runs_on(device):
-        return device.type == "cpu"
-
-    @staticmethod
-    def device_memory(device):
-        return 1 << 40
-
-    def _capture(self, fn):
-        stretches._commit(self.slots, fn(self.slots))
-
-        def replay():
-            stretches._commit(self.slots, fn(self.slots))
-
-        return types.SimpleNamespace(replay=replay)
-
-
 def _fields(sol):
     return {k: v.clone() for k, v in sol._asdict().items()}
 
@@ -136,7 +113,7 @@ def test_replayed_stretches_match_plain_calls(name, monkeypatch):
         _counted(lambda: _fields(qp_ipm.solve_qp(*arrs, opts=opts, **kw))) for arrs, kw in calls
     ]
 
-    monkeypatch.setattr(qp_ipm, "Graphed", _CpuReplay)
+    monkeypatch.setattr(qp_ipm, "Graphed", CpuReplay)
     monkeypatch.setattr(qp_ipm, "_PLANS", type(qp_ipm._PLANS)())
     monkeypatch.setattr(qp_ipm.solve_qp, "graph_captures", 0)
     monkeypatch.setattr(qp_ipm.solve_qp, "graph_replays", 0)
