@@ -4,8 +4,6 @@ Usage, from the repository root, on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA::
 
     python3 chip_smoke.py            # build, check the kernel, run every path
-    python3 chip_smoke.py --profile out/profile_slice.json  # + a profiled case30 run
-    python3 chip_smoke.py --profile118 out/profile_case118.json  # + a profiled case118 run, cut to 8 iterations
     python3 chip_smoke.py --paths case118   # a partial run: no closing "ok" line
     python3 chip_smoke.py --paths rect118,forms_single   # the other ACOPF formulations
     python3 chip_smoke.py --paths case30,plane_case30,plane_trip118   # the float32 matrix plane
@@ -62,11 +60,9 @@ Phases (any failure raises and the exit code is non-zero):
    within 1e-6 relative of its objective; the float64 phase must take at
    least one trip; the kernel's launch count must be positive (three per
    factorization: both numbers are printed);
-7. with ``--profile PATH`` / ``--profile118 PATH``: one more run of that path
-   under ``torch.profiler`` (case118 cut to ``--profile118-iters`` SQP
-   iterations: a whole solve is millions of device events), printing the
-   device time by kernel and the device's busy share of the wall time, and
-   writing the summary as JSON to ``PATH``;
+7. (no phase: a profile of a path under ``torch.profiler`` is the
+   benchmark's, ``python3 sqpbench/run.py --workload <cell> --seed <n>
+   --seconds <s> --trace 1``);
 8. the single-NLP entry point ``optimize`` on ``cuda`` (float64, direct
    factorizations through the library, as the default parameters have it):
    the verify recipe's three drives (the toy problem with ``OutputFlag=1``,
@@ -521,7 +517,7 @@ def run_slice(torch, record):
         raise AssertionError(f"slice: lanes off the anchor: {np.nonzero(rel > OBJ_RTOL)[0]}")
     if launches <= 0:
         raise AssertionError("slice: the Cholesky kernel was never launched")
-    return solve, wall, trips
+    return wall
 
 
 def _anchor(name):
@@ -659,11 +655,10 @@ def run_ls_case30(torch, record):
         raise AssertionError("ls_case30: the Cholesky kernel was never launched")
 
 
-def case118_solver(torch, tag="case118", max_iter=None):
+def case118_solver(torch, tag="case118"):
     """A chunked case118 path's configuration (``ANCHOR_118[tag]``: its
     formulation, data, parameters and chunking) from its anchor file,
-    through the port's public entry points; ``max_iter`` cuts the depth (the
-    profile)."""
+    through the port's public entry points."""
     from sqpsolver_tpu_torch import Parameters, batch_data, make_chunked_batch_solver
     from sqpsolver_tpu_torch.models import acopf
     from sqpsolver_tpu_torch.models.matpower import load_case
@@ -673,7 +668,7 @@ def case118_solver(torch, tag="case118", max_iter=None):
     nlp = getattr(acopf, f"acopf_{anchor.get('form', 'polar')}")(case)
     batch = anchor["batch"]
     theta = acopf.load_scenarios(case, batch, seed=anchor["seed"], spread=anchor["spread"])
-    kw = dict(anchor["params"], **({} if max_iter is None else {"max_iter": max_iter}))
+    kw = anchor["params"]
     log(f"{tag}: {case.name} n={nlp.n} m={nlp.m} batch={batch} chunked={anchor['chunked']} "
         f"params={kw}")
     solver = make_chunked_batch_solver(nlp, Parameters(**kw), **anchor["chunked"])
@@ -1186,13 +1181,14 @@ def capture_case118_kkt(torch):
         return first_solve, delta
 
     # plain calls, so that the hooks run on every trip
-    graphs = qp_ipm._GRAPHS
-    qp_ipm._GRAPHS, qp_ipm._pre, qp_ipm.DenseOp.block_solver = False, capture_pre, capture_block
+    plans = qp_ipm._PLANS
+    graphs = plans.graphs
+    plans.graphs, qp_ipm._pre, qp_ipm.DenseOp.block_solver = False, capture_pre, capture_block
     try:
         make_batch_solver(nlp, Parameters(**dict(anchor["params"], max_iter=1)))(
             batch_data(nlp, anchor["batch"], theta=theta))
     finally:
-        qp_ipm._GRAPHS, qp_ipm._pre, qp_ipm.DenseOp.block_solver = graphs, pre, block_solver
+        plans.graphs, qp_ipm._pre, qp_ipm.DenseOp.block_solver = graphs, pre, block_solver
     torch.cuda.synchronize()
     # a lane that has left the loop keeps its state bit for bit, so its
     # arguments repeat: keep the trips before the first lane leaves
@@ -1692,96 +1688,9 @@ def run_pegase(torch, record):
     if failures:
         raise AssertionError("pegase: " + "; ".join(failures))
 
-def profile_case118(torch, max_iter, out_path):
-    """Phase 7 for case118: the path cut to ``max_iter`` SQP iterations (a
-    whole solve is millions of device events), once plain and once under the
-    profiler."""
-    from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
-
-    _, _, _, solve = case118_solver(torch, max_iter=max_iter)
-    trips0 = dict(solve_qp.loop_trips)
-    secs0 = dict(solve_qp.phase_seconds)
-    out, wall = solve()
-    trips = {k: solve_qp.loop_trips[k] - trips0[k] for k in trips0}
-    secs = {k: solve_qp.phase_seconds[k] - secs0[k] for k in secs0}
-    log(f"profile case118, depth cut to max_iter={max_iter}: wall {wall:.3f} s; batched IPM "
-        f"trips phase 1 {trips[1]} in {secs[1]:.3f} s, phase 2 {trips[2]} in {secs[2]:.3f} s")
-    profile_slice(torch, solve, wall, int(out.qp_iters_total.sum().item()), out_path)
-
-
-def _kernel_family(name):
-    low = name.lower()
-    if "chol_tile" in low:
-        return "chol_tile (hand kernel)"
-    if "memcpy" in low or "memset" in low:
-        return "memcpy/memset"
-    if "gemm" in low or "gemv" in low or "dot_kernel" in low or "cutlass" in low:
-        return "cuBLAS matmul"
-    if "reduce" in low:
-        return "reductions"
-    if "sort" in low or "scatter" in low or "gather" in low or "index" in low:
-        return "sort/gather/scatter"
-    return "elementwise/other"
-
-
-def profile_slice(torch, solve, wall_plain, trips, out_path):
-    """Phase 7: one more run of a path under torch.profiler; the summary goes
-    to ``out_path`` as JSON."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall_prof = solve()
-    by_name, by_family = {}, {}
-    n_kernels = 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        n_kernels += 1
-        cnt, tot = by_name.get(ev.name, (0, 0.0))
-        by_name[ev.name] = (cnt + 1, tot + us)
-        cnt, tot = by_family.get(_kernel_family(ev.name), (0, 0.0))
-        by_family[_kernel_family(ev.name)] = (cnt + 1, tot + us)
-    busy_s = sum(t for _, t in by_name.values()) / 1e6
-    log(f"profile: wall {wall_prof:.3f} s under the profiler ({wall_plain:.3f} s "
-        f"without); device busy {busy_s:.4f} s = {busy_s / wall_plain:.1%} of the "
-        f"unprofiled wall; {n_kernels} device events ({n_kernels / max(trips, 1):.1f} "
-        f"per lane-IPM-trip)")
-    for fam, (cnt, tot) in sorted(by_family.items(), key=lambda kv: -kv[1][1]):
-        log(f"profile family: {fam:28s} {cnt:8d} events {tot / 1e3:10.3f} ms "
-            f"({tot / 1e6 / busy_s:.1%} of device time)")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    for name, (cnt, tot) in top:
-        log(f"profile kernel: {tot / 1e3:10.3f} ms {cnt:8d}x  {name[:110]}")
-    hand = {k: v for k, v in by_name.items() if "chol_tile" in k.lower()}
-    for name, (cnt, tot) in sorted(hand.items()):
-        log(f"profile hand kernel: {tot / 1e3:10.3f} ms {cnt:8d}x  {name[-60:]}")
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    with open(out_path, "w") as fh:
-        json.dump({
-            "wall_s": wall_plain, "wall_profiled_s": wall_prof, "device_busy_s": busy_s,
-            "device_events": n_kernels,
-            "families": {k: {"count": c, "ms": t / 1e3} for k, (c, t) in by_family.items()},
-            "top_kernels": [{"name": k, "count": c, "ms": t / 1e3} for k, (c, t) in top],
-            "hand_kernels": [{"name": k, "count": c, "ms": t / 1e3} for k, (c, t) in hand.items()],
-        }, fh, indent=1)
-
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument(
-        "--profile", metavar="PATH",
-        help="profile one more case30 run and write its summary as JSON to PATH",
-    )
-    ap.add_argument(
-        "--profile118", metavar="PATH",
-        help="profile a case118 run of cut depth and write its summary as JSON to PATH",
-    )
-    ap.add_argument(
-        "--profile118-iters", type=int, default=8, metavar="N",
-        help="SQP iterations (max_iter) of the profiled case118 run (default 8)",
-    )
     ap.add_argument(
         "--paths", default=",".join(PATHS),
         help=f"the paths to drive (default all: {','.join(PATHS)}; a partial run prints no "
@@ -1817,13 +1726,9 @@ def main() -> int:
     record["blocked"] = check_blocked(torch, chol_blocked, card)
     wall_ir = None
     if "case30" in paths:
-        solve, wall_ir, trips = run_slice(torch, record)
-        if args.profile:
-            profile_slice(torch, solve, wall_ir, trips, args.profile)
+        wall_ir = run_slice(torch, record)
     if "case118" in paths:
         run_case118(torch, record)
-        if args.profile118:
-            profile_case118(torch, args.profile118_iters, args.profile118)
     if "single" in paths:
         run_single(torch, record)
     if "ls_case30" in paths:

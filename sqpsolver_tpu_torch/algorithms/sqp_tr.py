@@ -29,10 +29,10 @@ the SOC's QP call and ``soc``; the ``eigh`` shift's eigenvalue call splits
 ``refresh`` at an ``inputs`` stretch, a one-lane verbose solve prints its
 line after ``post``, and the loop's sync reads the mask that the last
 stretch wrote.  For the dense operator on a CUDA device each stretch is
-replayed as a CUDA graph, kept by the solver (the graphs read its model's
-constants) for each input shape; ``stage_graphs`` counts their captures
-and replays.  The structured mode and every solve on the CPU run the same
-stretches as plain calls.
+replayed as a CUDA graph, kept in the solver's own ``stretches.Plans``
+(the graphs read its model's constants); ``stage_graphs`` counts their
+captures and replays.  The structured mode and every solve on the CPU run
+the same stretches as plain calls.
 
 Structured mode (``kkt_structured=True``, an NLP with a ``structure``): the
 derivatives arrive coloring-compressed (``nJ`` Jacobian JVPs and ``nH``
@@ -47,7 +47,6 @@ import dataclasses
 import math
 import time
 import types
-from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -58,7 +57,7 @@ from .._lanes import amax0, any_lane, dot, map_lanes, mv, select, true_float32_m
 from ..nlp import NLP, NLPData, initial_point
 from ..ops.kkt_bbd import BbdOperator, BlockMaps, HessBlocks, part_groups
 from ..ops.qp_ipm import IpmOptions, solve_qp, solve_qp_op
-from ..ops.stretches import Eager, Graphed, flat_trees
+from ..ops.stretches import Eager, Plans, flat_trees
 from ..parameters import Parameters
 from ..status import Status
 from ..structure import build_block_structure
@@ -77,12 +76,6 @@ _QP_BAD_MAX = 3
 #: every solver so far (their hit share is replays / (replays + captures));
 #: ``solve_qp.graph_captures`` / ``graph_replays`` count the QP trip's apart
 stage_graphs = types.SimpleNamespace(graph_captures=0, graph_replays=0)
-#: False runs the iteration's stretches as plain calls on the card too (for
-#: tests)
-_STAGE_GRAPHS = True
-#: the share of the card's memory one solver's stage graphs may hold; the
-#: least recently used go first
-_STAGE_MEMORY_SHARE = 0.125
 
 #: the state fields that the refresh of an iteration evaluates anew
 _REFRESHED = ("f", "df", "E", "J", "H", "prim_infeas", "dual_infeas")
@@ -909,29 +902,14 @@ def make_solver(
         st = refreshed(get).replace(**get("mid"))
         return end_iteration(get, stages_accept(st, get("d"), get("ctx"), get("soc")))
 
-    plans: "OrderedDict[tuple, Graphed]" = OrderedDict()
+    # the graphs read this solver's model constants: its own cache
+    plans = Plans(stage_graphs)
 
     def stage_runner(trees: dict):
         """The run of one ``run_until`` call: its stretches replayed as CUDA
-        graphs for the dense operator on a CUDA device, else plain calls.
-        Graphs belong to this solver (they read its model's constants) and
-        are kept by what they depend on: device, float32 matmul precision,
-        and each input's name, dtype, shape and strides."""
+        graphs for the dense operator on a CUDA device, else plain calls."""
         dev = trees["st"].x.device
-        if structured or not (_STAGE_GRAPHS and Graphed.runs_on(dev)):
-            run = Eager()
-        else:
-            key = (
-                dev, torch.get_float32_matmul_precision(),
-                tuple(
-                    (k, v.dtype, tuple(v.shape), v.stride()) for k, v in flat_trees(trees).items()
-                ),
-            )
-            run = plans.pop(key, None) or Graphed(dev, stage_graphs)
-            plans[key] = run
-            budget = _STAGE_MEMORY_SHARE * Graphed.device_memory(dev)
-            while len(plans) > 1 and sum(r.nbytes for r in plans.values()) > budget:
-                plans.popitem(last=False)
+        run = Eager() if structured else plans.run(dev, None, flat_trees(trees))
         run.load_trees(trees)
         return run
 

@@ -16,9 +16,9 @@ into arrow form::
 The factorization is a batched dense Cholesky of the interiors and a dense
 Cholesky of the separator's Schur complement; every block tensor carries the
 lanes on its leading axis (``K_pp`` (B, P, nd, nd), ``K_ps`` (B, P, nd, ns),
-``K_ss`` (B, ns, ns)).  Stability follows the dense path's escalating
-regularization ladder (:mod:`ops.linsolve`), run as a host loop over the lanes
-still failing; float64 refinement recovers the accuracy of float32 factors.
+``K_ss`` (B, ns, ns)).  Stability comes from the dense path's escalating
+regularization ladder (``linsolve.run_ladder``) with the BBD blocks' steps,
+run eagerly; float64 refinement recovers the accuracy of float32 factors.
 
 The interiors and the separator are factored by the library
 (``torch.linalg.cholesky_ex``, as the JAX package factors them with
@@ -47,17 +47,17 @@ factored, on the lanes' device.
 from __future__ import annotations
 
 import dataclasses
+import types
 from functools import reduce
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .._lanes import amax0, amin_inf, any_lane, select
-from .linsolve import _chol_library, factorize_spd, solve_factorized, tri_inv
+from .._lanes import amax0, amin_inf, select
+from .linsolve import _chol_library, factorize_spd, run_ladder, solve_factorized, tri_inv
+from .stretches import Eager
 
-_REG_GROWTH = 100.0
-_REG_MAX_TRIES = 10
 _BIG = 1e20  # stand-in for +inf inside masked arithmetic (qp_ipm._BIG)
 
 
@@ -110,10 +110,11 @@ def bbd_factorize(
     K_pp, K_ps, K_ss, delta0, min_pivot: float = 1e-3, groups=None
 ) -> BbdFactor:
     """Factor a batch of BBD matrices with the escalating-regularization
-    ladder: ``delta`` starts at ``delta0`` (B,) and multiplies by 100 until
-    both factors are finite with pivots above ``min_pivot``, at most 10
-    times; lanes that escalated then take 4 log-bisection steps.  Each try
-    costs one host sync; lanes that are done keep their factor bit for bit.
+    ladder (``linsolve.run_ladder``, run eagerly): ``delta`` starts at
+    ``delta0`` (B,) and multiplies by 100 until both factors are finite with
+    pivots above ``min_pivot``, at most 10 times; lanes that escalated then
+    take 4 log-bisection steps.  Each try costs one host sync; lanes that
+    are done keep their factor bit for bit.
 
     Inputs are factor-dtype blocks (float32 normally, float64 in the rescue
     phase); padded interior slots carry an identity diagonal and zero
@@ -122,7 +123,6 @@ def bbd_factorize(
     device; every group's finite test and smallest pivot join the
     separator's on the lanes' device before the ladder decides."""
     B, P, nd, _ = K_pp.shape
-    ns = K_ss.shape[-1]
     fdt = K_pp.dtype
     dev = K_pp.device
     groups = groups or ((dev, slice(None)),)
@@ -139,7 +139,8 @@ def bbd_factorize(
     delta0 = torch.as_tensor(delta0, dtype=fdt, device=dev).expand(B)
 
     def attempt(delta):
-        L_g, W_g, seps, finite, pivots = [], [], [], [], []
+        """A rung's factor: ``(*L_g, *W_g, L_ss, dS)``."""
+        L_g, W_g, seps = [], [], []
         for gdev, Kpp, Kps in parts:
             Pg = Kpp.shape[1]
             L = _chol_library(
@@ -149,58 +150,40 @@ def bbd_factorize(
             L_g.append(L)
             W_g.append(W)
             seps.append(torch.einsum("bpki,bpkj->bij", W, W).to(dev))
-            finite.append(torch.isfinite(L).flatten(1).all(-1).to(dev))
-            pivots.append(amin_inf(_diag(L).reshape(B, Pg * nd)).to(dev))
         S = _eye_add(K_ss, delta[:, None]) - reduce(torch.add, seps)
         # the Schur complement loses the caller's unit diagonal; its own
         # Jacobi scale keeps the float32 factor and the pivot probe meaningful
         dS = torch.rsqrt(torch.clamp_min(torch.abs(_diag(S)), 1e-30))
         L_ss = _chol_library(S * dS[:, :, None] * dS[:, None, :])
+        return (*L_g, *W_g, L_ss, dS)
+
+    def probe(fac):
+        L_ss = fac[2 * G]
+        finite = [torch.isfinite(L).flatten(1).all(-1).to(dev) for L in fac[:G]]
+        pivots = [amin_inf(_diag(L).flatten(1)).to(dev) for L in fac[:G]]
         # (one group: the reductions over groups are the group's own values)
         ok = reduce(torch.logical_and, finite) & torch.isfinite(L_ss).flatten(1).all(-1)
         # pivot probe: both factors are of unit-diagonal matrices, so a tiny
         # pivot means numerically singular at the factor's precision
         piv = torch.minimum(reduce(torch.minimum, pivots), amin_inf(_diag(L_ss)))
-        return (*L_g, *W_g, L_ss, dS), ok & (piv > min_pivot)
+        return ok & (piv > min_pivot)
 
     def pick(mask, a, b):
         return tuple(select(mask.to(x.device), x, y) for x, y in zip(a, b))
 
-    delta = delta0
-    fac, ok = attempt(delta)
-    tries = torch.zeros(B, dtype=torch.int32, device=dev)
-    escalated_any = False
-    while True:
-        go = ~ok & (tries < _REG_MAX_TRIES)
-        if not any_lane(go):
-            break
-        escalated_any = True
-        new_delta = torch.where(delta == 0.0, delta_floor, delta * _REG_GROWTH)
-        fac_n, ok_n = attempt(new_delta)
-        delta = torch.where(go, new_delta, delta)
-        fac = pick(go, fac_n, fac)
-        ok = torch.where(go, ok_n, ok)
-        tries = tries + go.to(torch.int32)
-
-    if escalated_any:
-        # bisection of an escalated delta: the x100 ladder overshoots the
-        # minimal correction by up to 100x; four log-bisection steps tighten
-        # [delta / 100, delta].  Lanes that did not escalate keep their factor
-        escalated = ok & (tries > 0)
-        lo = torch.maximum(delta / _REG_GROWTH, delta_floor * 1e-2)
-        hi, fac_hi = delta, fac
-        for _ in range(4):
-            mid = torch.sqrt(lo * hi)
-            fac_m, ok_m = attempt(mid)
-            lo = torch.where(ok_m, lo, mid)
-            hi = torch.where(ok_m, mid, hi)
-            fac_hi = pick(ok_m, fac_m, fac_hi)
-        delta = torch.where(escalated, hi, delta)
-        fac = pick(escalated, fac_hi, fac)
+    # the ladder's steps for BBD blocks: a rung's factor input is its delta
+    ladder = types.SimpleNamespace(
+        chol=lambda: attempt, shifted=lambda t, s, delta: delta, probe=probe, select=pick
+    )
+    run = Eager()
+    run.load({"delta": delta0, "floor": delta_floor, "X": delta0})
+    run_ladder(run, ladder, "")
+    fac = run.slots["L"]
     L_ss, dS = fac[2 * G:]
     return BbdFactor(
         Li_pp=tuple(_tri_inv_batched(L) for L in fac[:G]), W=fac[G:2 * G],
-        Li_ss=_tri_inv_batched(L_ss), dS=dS, delta=delta, ok=ok, groups=tuple(groups),
+        Li_ss=_tri_inv_batched(L_ss), dS=dS, delta=run.slots["delta"], ok=run.slots["ok"],
+        groups=tuple(groups),
     )
 
 

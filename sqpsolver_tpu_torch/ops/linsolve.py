@@ -31,9 +31,11 @@ from .._lanes import amax0, amin_inf, mv, select, true_float32_matmul
 from .chol_blocked import cholesky_blocked, tri_inv_blocked
 from .stretches import Eager
 
-#: multiplicative ladder for the inertia-correction regularization
+#: multiplicative ladder for the inertia-correction regularization, and the
+#: log-bisection steps that tighten an escalated rung
 _REG_GROWTH = 100.0
 _REG_MAX_TRIES = 10
+_REG_BISECTIONS = 4
 
 
 class Factorization(NamedTuple):
@@ -64,7 +66,10 @@ def _chol_library(A: torch.Tensor) -> torch.Tensor:
 
 class LadderSpec(NamedTuple):
     """How the ladder factors one matrix (the options of :func:`factorize_spd`;
-    ``factor_dtype`` resolved)."""
+    ``factor_dtype`` resolved).  Its methods are the steps that
+    :func:`run_ladder` asks of a ladder (``kkt_bbd.bbd_factorize`` has its
+    own): the factorization call, the first rung's floor, a rung's factor
+    input, the probe of a factor and the per-lane pick of one."""
 
     factor_dtype: torch.dtype
     backend: str = "xla"
@@ -79,6 +84,33 @@ class LadderSpec(NamedTuple):
             return cholesky_blocked
         return _chol_library
 
+    def _eff(self, t: str, s: dict) -> torch.Tensor:
+        return s[t + "Meff"] if self.equilibrate else s[t + "M"]
+
+    def floor(self, t: str, s: dict) -> torch.Tensor:
+        """The first rung: ``1e-12`` times the largest diagonal entry of the
+        (equilibrated) matrix, at least 1."""
+        diag = torch.diagonal(self._eff(t, s), dim1=-2, dim2=-1)
+        return torch.clamp_min(amax0(torch.abs(diag)), 1.0) * 1e-12
+
+    def shifted(self, t: str, s: dict, delta: torch.Tensor) -> torch.Tensor:
+        """A rung's factor input: the (equilibrated) matrix plus ``delta I``,
+        in the factor dtype."""
+        M_eff = self._eff(t, s)
+        eye = torch.eye(M_eff.shape[-1], dtype=M_eff.dtype, device=M_eff.device)
+        return (M_eff + delta[:, None, None] * eye).to(self.factor_dtype)
+
+    def probe(self, L: torch.Tensor) -> torch.Tensor:
+        """Lanes whose factor is usable: finite, and past ``min_pivot``."""
+        ok = _chol_ok(L)
+        if self.min_pivot > 0.0:
+            piv = amin_inf(torch.diagonal(L, dim1=-2, dim2=-1))
+            ok = ok & (piv > self.min_pivot)
+        return ok
+
+    #: per lane, ``a`` where ``mask`` is set, else ``b``
+    select = staticmethod(select)
+
 
 # The ladder as stretches (``ops/stretches.py``) over slots named ``t + key``:
 # ``M`` the matrix, ``Meff`` its equilibrated form (when equilibrated),
@@ -87,25 +119,8 @@ class LadderSpec(NamedTuple):
 # input and ``Lraw`` its factor, ``nd`` the next rung, ``go`` the lanes that
 # take it, ``lo``/``hi``/``L_hi``/``mid``/``esc`` the bisection, and
 # ``matrix``/``Li`` the finished factorization's regularized matrix and
-# inverse factor.
-
-
-def _eff(spec: LadderSpec, t: str, s: dict) -> torch.Tensor:
-    return s[t + "Meff"] if spec.equilibrate else s[t + "M"]
-
-
-def _shifted(spec: LadderSpec, M_eff: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    eye = torch.eye(M_eff.shape[-1], dtype=M_eff.dtype, device=M_eff.device)
-    return (M_eff + delta[:, None, None] * eye).to(spec.factor_dtype)
-
-
-def _probe(spec: LadderSpec, L: torch.Tensor) -> torch.Tensor:
-    """Lanes whose factor is usable: finite, and past ``min_pivot``."""
-    ok = _chol_ok(L)
-    if spec.min_pivot > 0.0:
-        piv = amin_inf(torch.diagonal(L, dim1=-2, dim2=-1))
-        ok = ok & (piv > spec.min_pivot)
-    return ok
+# inverse factor.  ``spec`` supplies the steps that depend on what is
+# factored (:class:`LadderSpec`).
 
 
 def _next_rung(spec, t, s, delta, ok, tries) -> dict:
@@ -115,7 +130,7 @@ def _next_rung(spec, t, s, delta, ok, tries) -> dict:
     return {
         t + "delta": delta, t + "ok": ok, t + "tries": tries,
         t + "go": ~ok & (tries < _REG_MAX_TRIES),
-        t + "nd": new_delta, t + "X": _shifted(spec, _eff(spec, t, s), new_delta),
+        t + "nd": new_delta, t + "X": spec.shifted(t, s, new_delta),
     }
 
 
@@ -129,34 +144,30 @@ def ladder_start(spec: LadderSpec, t: str, M: torch.Tensor, delta0) -> dict:
         scale = torch.rsqrt(dvec)
         out[t + "dvec"], out[t + "scale"] = dvec, scale
         out[t + "Meff"] = M * scale[:, :, None] * scale[:, None, :]
-    M_eff = _eff(spec, t, out)
-    diag_scale = torch.clamp_min(
-        amax0(torch.abs(torch.diagonal(M_eff, dim1=-2, dim2=-1))), 1.0
-    )
     if torch.is_tensor(delta0):
         delta = delta0.to(dtype).expand(B)
     else:
         delta = torch.full((B,), float(delta0), dtype=dtype, device=dev)
-    out[t + "floor"] = diag_scale * 1e-12
+    out[t + "floor"] = spec.floor(t, out)
     out[t + "delta"] = delta
-    out[t + "X"] = _shifted(spec, M_eff, delta)
+    out[t + "X"] = spec.shifted(t, out, delta)
     return out
 
 
 def ladder_first(spec: LadderSpec, t: str, s: dict) -> dict:
     """Stretch after the first factorization."""
-    L = s[t + "Lraw"]
-    tries = torch.zeros(L.shape[0], dtype=torch.int32, device=L.device)
-    return {t + "L": L, **_next_rung(spec, t, s, s[t + "delta"], _probe(spec, L), tries)}
+    L, delta = s[t + "Lraw"], s[t + "delta"]
+    tries = torch.zeros(delta.shape[0], dtype=torch.int32, device=delta.device)
+    return {t + "L": L, **_next_rung(spec, t, s, delta, spec.probe(L), tries)}
 
 
 def ladder_rung(spec: LadderSpec, t: str, s: dict) -> dict:
     """Stretch after a factorization one rung up, on the lanes ``go``."""
     go, L_n = s[t + "go"], s[t + "Lraw"]
     delta = torch.where(go, s[t + "nd"], s[t + "delta"])
-    ok = torch.where(go, _probe(spec, L_n), s[t + "ok"])
+    ok = torch.where(go, spec.probe(L_n), s[t + "ok"])
     tries = s[t + "tries"] + go.to(torch.int32)
-    return {t + "L": select(go, L_n, s[t + "L"]), **_next_rung(spec, t, s, delta, ok, tries)}
+    return {t + "L": spec.select(go, L_n, s[t + "L"]), **_next_rung(spec, t, s, delta, ok, tries)}
 
 
 def ladder_bisect_start(spec: LadderSpec, t: str, s: dict) -> dict:
@@ -168,36 +179,39 @@ def ladder_bisect_start(spec: LadderSpec, t: str, s: dict) -> dict:
     return {
         t + "esc": s[t + "ok"] & (s[t + "tries"] > 0),
         t + "lo": lo, t + "hi": delta, t + "L_hi": s[t + "L"], t + "mid": mid,
-        t + "X": _shifted(spec, _eff(spec, t, s), mid),
+        t + "X": spec.shifted(t, s, mid),
     }
 
 
 def ladder_bisect(spec: LadderSpec, t: str, s: dict, last: bool) -> dict:
     """Stretch after a bisection probe: the next probe's input, or after the
     ``last`` the escalated lanes' ``delta`` and factor."""
-    ok_m, mid = _probe(spec, s[t + "Lraw"]), s[t + "mid"]
+    ok_m, mid = spec.probe(s[t + "Lraw"]), s[t + "mid"]
     lo = torch.where(ok_m, s[t + "lo"], mid)
     hi = torch.where(ok_m, mid, s[t + "hi"])
-    L_hi = select(ok_m, s[t + "Lraw"], s[t + "L_hi"])
+    L_hi = spec.select(ok_m, s[t + "Lraw"], s[t + "L_hi"])
     if last:
         esc = s[t + "esc"]
         return {
             t + "delta": torch.where(esc, hi, s[t + "delta"]),
-            t + "L": select(esc, L_hi, s[t + "L"]),
+            t + "L": spec.select(esc, L_hi, s[t + "L"]),
         }
     mid = torch.sqrt(lo * hi)
     return {
         t + "lo": lo, t + "hi": hi, t + "L_hi": L_hi, t + "mid": mid,
-        t + "X": _shifted(spec, _eff(spec, t, s), mid),
+        t + "X": spec.shifted(t, s, mid),
     }
 
 
 def run_ladder(run, spec: LadderSpec, t: str, *, true_f32: bool = False) -> None:
-    """The ladder's host points on ``run`` (``ops/stretches.py``), from
-    :func:`ladder_start`'s slots to the final ``L`` and ``delta``: a
+    """The ladder's host points on ``run`` (``ops/stretches.py``), from the
+    slots ``floor``, ``delta`` and ``X`` (:func:`ladder_start`'s for one
+    matrix) to the final ``L``, ``delta`` and ``ok``, with the steps of
+    ``spec`` (a :class:`LadderSpec`, or another ladder's steps): a
     factorization, then one sync per rung (the lanes that escalate take the
-    next rung, at most ``_REG_MAX_TRIES``); when any lane escalated, four
-    bisection probes.  ``true_f32`` runs it all with TF32 off."""
+    next rung, at most ``_REG_MAX_TRIES``); when any lane escalated,
+    ``_REG_BISECTIONS`` bisection probes.  ``true_f32`` runs it all with
+    TF32 off."""
     if true_f32:
         with true_float32_matmul():
             return run_ladder(run, spec, t)
@@ -215,9 +229,9 @@ def run_ladder(run, spec: LadderSpec, t: str, *, true_f32: bool = False) -> None
         # did not escalate keep their factor (under vmap the JAX cond is a
         # per-lane select)
         run.stretch(t + "bisect0", lambda s: ladder_bisect_start(spec, t, s))
-        for i in range(4):
+        for i in range(_REG_BISECTIONS):
             run.factor(chol, t + "X", t + "Lraw")
-            if i < 3:
+            if i < _REG_BISECTIONS - 1:
                 run.stretch(t + "bisect", lambda s: ladder_bisect(spec, t, s, False))
             else:
                 run.stretch(t + "bisect_last", lambda s: ladder_bisect(spec, t, s, True))

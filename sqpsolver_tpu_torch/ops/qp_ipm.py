@@ -42,8 +42,9 @@ the set-up, then per trip the work up to K's factorization, K's ladder
 S's ladder and the rest of the trip up to the loop's sync, then the
 finish.  On a CUDA card a :class:`DenseOp` solve replays each stretch as a
 CUDA graph, captured the first time a call with the same options, float32
-matmul precision and input shapes runs it (a bounded process-wide cache, so
-a caller building a new solver per call reuses the graphs of the last one);
+matmul precision and input shapes runs it (``_PLANS``, a process-wide
+``stretches.Plans`` of at most 8 runs, so a caller building a new solver
+per call reuses the graphs of the last one);
 every factorization and every sync stays an eager call between the
 replays.  ``solve_qp.graph_captures`` and ``solve_qp.graph_replays`` count
 them.  The structured operator, and every solve on the CPU, run the same
@@ -55,7 +56,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -65,7 +65,7 @@ from .linsolve import (
     LadderSpec, cho_solve, factorize_spd, inv_chol_solve, ladder_factorization, ladder_finish,
     ladder_start, run_ladder, solve_factorized, tri_inv,
 )
-from .stretches import Eager, Graphed
+from .stretches import Eager, Plans
 
 _BIG = 1e20  # stand-in for +inf inside masked arithmetic
 
@@ -490,35 +490,9 @@ class _Call:
     tol_override: bool
 
 
-#: graphed runs of the dense trip by what their graphs depend on: device,
-#: options, float32 matmul precision, and each input's name, dtype, shape
-#: and strides
-_PLANS: "OrderedDict[tuple, Graphed]" = OrderedDict()
-#: the most runs kept, and the share of the card's memory their captures
-#: may hold; the least recently used go first
-_PLAN_LIMIT = 8
-_PLAN_MEMORY_SHARE = 0.125
-#: False runs the dense trip as plain calls on the card too (for tests)
-_GRAPHS = True
-
-
-def _runner(device: torch.device, staged: bool, opts: IpmOptions, inputs: dict):
-    """The run of one call: graphed for a dense operator on a CUDA device,
-    else plain calls."""
-    if not (staged and _GRAPHS and Graphed.runs_on(device)):
-        return Eager()
-    key = (
-        device, opts, torch.get_float32_matmul_precision(),
-        tuple((k, v.dtype, tuple(v.shape), v.stride()) for k, v in inputs.items()),
-    )
-    run = _PLANS.pop(key, None) or Graphed(device, solve_qp)
-    _PLANS[key] = run
-    budget = _PLAN_MEMORY_SHARE * Graphed.device_memory(device)
-    while len(_PLANS) > 1 and (
-        len(_PLANS) > _PLAN_LIMIT or sum(r.nbytes for r in _PLANS.values()) > budget
-    ):
-        _PLANS.popitem(last=False)
-    return run
+#: graphed runs of the dense trip, process-wide (a caller that builds a new
+#: solver per call reuses the last one's graphs), keyed by the options too
+_PLANS = Plans(solve_qp, limit=8)
 
 
 def solve_qp_op(
@@ -552,7 +526,7 @@ def solve_qp_op(
     staged = isinstance(op, DenseOp)
     if staged:
         inputs.update(op.tensors())
-    run = _runner(c.device, staged, opts, inputs)
+    run = _PLANS.run(c.device, opts, inputs) if staged else Eager()
     run.load(inputs)
     lop = op.over(run.slots) if run.graphed else op
 

@@ -26,11 +26,16 @@ Slots may also hold named *trees* (a tensor, None, a dict, a NamedTuple or a
 dataclass of such, as the SQP state is): :meth:`Eager.load_trees` and
 :meth:`Eager.tree_stretch` keep each tree's tensors under dotted names
 (``st.x``, ``st.stats.f``) and rebuild the tree from them.
+
+:class:`Plans` is the one policy of which graphed runs are kept: a cache of
+one scope (the IPM trip's, process-wide; each SQP-TR solver's own) that
+hands a caller the run for its device and named inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 
 import torch
 
@@ -297,3 +302,47 @@ class Graphed(Eager):
 
     def export(self, t: torch.Tensor) -> torch.Tensor:
         return t.clone()
+
+
+#: the share of the card's memory that the captures of one :class:`Plans`
+#: may hold
+_MEMORY_SHARE = 0.125
+
+
+class Plans(OrderedDict):
+    """Graphed runs of one scope, least recently used first, keyed by what
+    their graphs depend on: the device, the float32 matmul precision, the
+    caller's key, and each named tensor's name, dtype, shape and strides.
+    Each run counts into ``tally``.  The least recently used run goes while
+    more than one is kept and the cache holds more than ``limit`` runs (no
+    limit when None) or its captures more than :data:`_MEMORY_SHARE` of the
+    card's memory."""
+
+    #: False runs every stretch as a plain call (for tests; set on an
+    #: instance for one cache, on the class for every cache)
+    graphs = True
+
+    def __init__(self, tally, limit: int | None = None):
+        super().__init__()
+        self.tally = tally
+        self.limit = limit
+
+    def run(self, device: torch.device, key, tensors: dict) -> Eager:
+        """The run for ``tensors`` on ``device``: the kept graphed run of
+        this key, a new one, or plain calls where graphs are off or the
+        device cannot run them."""
+        if not (self.graphs and Graphed.runs_on(device)):
+            return Eager()
+        key = (
+            device, torch.get_float32_matmul_precision(), key,
+            tuple((k, v.dtype, tuple(v.shape), v.stride()) for k, v in tensors.items()),
+        )
+        run = self.pop(key, None) or Graphed(device, self.tally)
+        self[key] = run
+        budget = _MEMORY_SHARE * Graphed.device_memory(device)
+        while len(self) > 1 and (
+            (self.limit is not None and len(self) > self.limit)
+            or sum(r.nbytes for r in self.values()) > budget
+        ):
+            self.popitem(last=False)
+        return run

@@ -79,7 +79,6 @@ def make_chunked_batch_solver(
     params: Parameters = Parameters(),
     *,
     chunk0: int = 1,
-    max_chunk: int = 64,
     sub_batch: int = 0,
     log: Optional[Callable[[str], None]] = None,
     rescue_fallback: bool = False,
@@ -87,11 +86,11 @@ def make_chunked_batch_solver(
 ) -> Callable[[NLPData], SqpResult]:
     """Batched solver advanced in host-controlled rounds of outer iterations.
 
-    Each round advances a slab of lanes by ``min(chunk0, max_chunk)`` SQP
-    iterations through the solver's ``run_until`` stage and costs one host
-    sync (every lane's iteration count and done flag) on top of the solver's
-    own.  The rounds are the cut points of a checkpoint or a lane repacking;
-    the result is that of the monolithic solver, lane for lane.
+    Each round advances a slab of lanes by ``chunk0`` SQP iterations through
+    the solver's ``run_until`` stage and costs one host sync (every lane's
+    iteration count and done flag) on top of the solver's own.  The rounds
+    are the cut points of a checkpoint or a lane repacking; the result is
+    that of the monolithic solver, lane for lane.
 
     ``sub_batch``: slab width (0 = the whole batch).  With a slab the lanes
     form a WORK QUEUE: each round gathers the ``sub_batch`` least-advanced
@@ -128,7 +127,7 @@ def make_chunked_batch_solver(
     """
     solver = make_solver(nlp, params.replace(OutputFlag=0))  # no iteration log
     max_iter = params.max_iter
-    k = max(1, min(int(chunk0), int(max_chunk)))
+    k = max(1, int(chunk0))
     fallback: list = []
 
     def solve(data: NLPData) -> SqpResult:
@@ -177,7 +176,7 @@ def make_chunked_batch_solver(
             if not fallback:
                 fallback.append(make_chunked_batch_solver(
                     nlp, params.replace(qp_rescue=True),
-                    chunk0=chunk0, max_chunk=max_chunk, sub_batch=sub_batch, log=log,
+                    chunk0=chunk0, sub_batch=sub_batch, log=log,
                     _pass="fallback",
                 ))
             make_chunked_batch_solver.fallback_lanes += int(bad.size)

@@ -1,14 +1,15 @@
 """A small batch of dense elastic QPs whose regularization ladders escalate
 and bisect on some lanes only, and the IPM option sets it is solved under
 (``tests/test_torch_qp_trip.py`` on the CPU, ``tests/test_torch_gpu.py`` on
-the card); and the CPU stand-in for a CUDA-graphed run of stretches."""
+the card); the CPU stand-in for a CUDA-graphed run of stretches, and a
+fresh cache for the IPM trip's graphed runs."""
 
 import types
 
 import numpy as np
 import torch
 
-from sqpsolver_tpu_torch.ops import stretches
+from sqpsolver_tpu_torch.ops import qp_ipm, stretches
 
 INF = np.inf
 N, M = 10, 14
@@ -71,3 +72,12 @@ class CpuReplay(stretches.Graphed):
             stretches._commit(self.slots, fn(self.slots))
 
         return types.SimpleNamespace(replay=replay)
+
+
+def trip_plans(graphs=True):
+    """A fresh cache for the IPM trip's graphed runs, made as
+    ``qp_ipm._PLANS`` is, to stand in its place; ``graphs=False`` runs the
+    trip as plain calls."""
+    plans = stretches.Plans(qp_ipm.solve_qp, limit=qp_ipm._PLANS.limit)
+    plans.graphs = graphs
+    return plans

@@ -80,7 +80,6 @@ JAX it runs on its own, without the suite's JAX conftest::
 import dataclasses
 import json
 import pathlib
-from collections import OrderedDict
 
 import numpy as np
 import pytest
@@ -91,11 +90,11 @@ from sqpsolver_tpu_torch._lanes import any_lane
 from sqpsolver_tpu_torch.algorithms import sqp_tr
 from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
 from sqpsolver_tpu_torch.models.matpower import load_case
-from sqpsolver_tpu_torch.ops import qp_ipm
+from sqpsolver_tpu_torch.ops import qp_ipm, stretches
 from sqpsolver_tpu_torch.ops.chol_blocked import chol_tile, chol_tile_plain, cholesky_blocked
 from sqpsolver_tpu_torch.ops.qp_ipm import solve_qp
 
-from qp_batches import OPTS as QP_OPTS, escalating_qps
+from qp_batches import OPTS as QP_OPTS, escalating_qps, trip_plans
 
 SLICE = dict(
     max_iter=40, OutputFlag=0, tol_infeas=1.0e-6, tol_residual=1.0e-4,
@@ -439,11 +438,11 @@ def _same_answers(one, two, fields=_ANSWER):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cell", ["b32", "one_lane"])
 def test_graphed_trip_matches_plain_calls_bit_for_bit(cuda, cell, monkeypatch):
-    monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+    monkeypatch.setattr(qp_ipm, "_PLANS", trip_plans())
     solve = (_b32_solve if cell == "b32" else _one_lane_solve)(cuda)
-    monkeypatch.setattr(qp_ipm, "_GRAPHS", False)
+    monkeypatch.setattr(qp_ipm._PLANS, "graphs", False)
     plain, plain_counts = _measured(solve)
-    monkeypatch.setattr(qp_ipm, "_GRAPHS", True)
+    monkeypatch.setattr(qp_ipm._PLANS, "graphs", True)
     graphed, counts = _measured(solve)
     assert plain_counts["captures"] == plain_counts["replays"] == 0
     assert 0 < counts["captures"] < counts["replays"]
@@ -460,12 +459,12 @@ def _qp_fields(sol):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(QP_OPTS))
 def test_graphed_ladders_match_plain_calls(cuda, name, monkeypatch):
-    monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+    monkeypatch.setattr(qp_ipm, "_PLANS", trip_plans())
     opts = qp_ipm.IpmOptions(**QP_OPTS[name])
     batches = [escalating_qps(seed, device=cuda) for seed in (7, 9)]
     runs = {}
     for graphs in (False, True):
-        monkeypatch.setattr(qp_ipm, "_GRAPHS", graphs)
+        monkeypatch.setattr(qp_ipm._PLANS, "graphs", graphs)
         runs[graphs] = [
             _measured(lambda: _qp_fields(solve_qp(*arrs, opts=opts))) for arrs in batches
         ]
@@ -483,7 +482,7 @@ def test_graphed_ladders_match_plain_calls(cuda, name, monkeypatch):
 
 @pytest.mark.gpu
 def test_graph_cache_keeps_batch_and_one_lane_apart(cuda, monkeypatch):
-    monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
+    monkeypatch.setattr(qp_ipm, "_PLANS", trip_plans())
     b32, one_lane = _b32_solve(cuda), _one_lane_solve(cuda)
     first, first_counts = _measured(b32)
     _, lane_counts = _measured(one_lane)
@@ -537,9 +536,11 @@ def test_graphed_stages_match_plain_calls_bit_for_bit(cuda, cell, monkeypatch):
     )[cell](cuda)
     runs = []
     for graphs in (False, True, True):
-        # each run captures the QP trip's graphs anew, so that its counts compare
-        monkeypatch.setattr(qp_ipm, "_PLANS", OrderedDict())
-        monkeypatch.setattr(sqp_tr, "_STAGE_GRAPHS", graphs)
+        # each run captures the QP trip's graphs anew, so that its counts
+        # compare; the stage graphs of every solver, those that optimize and
+        # the rescue fallback build included, go off or on together
+        monkeypatch.setattr(qp_ipm, "_PLANS", trip_plans())
+        monkeypatch.setattr(stretches.Plans, "graphs", graphs)
         runs.append(_measured(solve))
     (plain, plain_counts), (graphed, counts), (again, again_counts) = runs
     assert plain_counts["stage_captures"] == plain_counts["stage_replays"] == 0

@@ -18,7 +18,12 @@ a float64 polish phase after a float32 one.
   into a tensor another slot reads, would go wrong.  Two calls on other data
   and a call of another shape in between give the plain path's answers bit
   for bit, the same syncs, and replays where the shapes repeat.
+* The cache of graphed runs (``stretches.Plans``) drops its least recently
+  used run past its count limit or its share of the card's memory, never
+  its only run, and hands out plain calls where graphs are off.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -27,7 +32,7 @@ import torch
 from sqpsolver_tpu_torch._lanes import any_lane
 from sqpsolver_tpu_torch.ops import chol_blocked, qp_ipm, stretches
 
-from qp_batches import M, N, OPTS, CpuReplay, escalating_qps as _qps
+from qp_batches import M, N, OPTS, CpuReplay, escalating_qps as _qps, trip_plans
 
 T, F = True, False
 #: recorded on seed 7 by the IPM before its trip was split into stretches
@@ -113,8 +118,8 @@ def test_replayed_stretches_match_plain_calls(name, monkeypatch):
         _counted(lambda: _fields(qp_ipm.solve_qp(*arrs, opts=opts, **kw))) for arrs, kw in calls
     ]
 
-    monkeypatch.setattr(qp_ipm, "Graphed", CpuReplay)
-    monkeypatch.setattr(qp_ipm, "_PLANS", type(qp_ipm._PLANS)())
+    monkeypatch.setattr(stretches, "Graphed", CpuReplay)
+    monkeypatch.setattr(qp_ipm, "_PLANS", trip_plans())
     monkeypatch.setattr(qp_ipm.solve_qp, "graph_captures", 0)
     monkeypatch.setattr(qp_ipm.solve_qp, "graph_replays", 0)
     # the first shape twice around another shape, then the first shape warm
@@ -130,3 +135,43 @@ def test_replayed_stretches_match_plain_calls(name, monkeypatch):
     captures = qp_ipm.solve_qp.graph_captures
     replays = qp_ipm.solve_qp.graph_replays
     assert captures > 0 and replays > 10 * captures
+
+
+def _plan(plans, width):
+    return plans.run(torch.device("cpu"), None, {"x": torch.zeros(width)})
+
+
+@pytest.mark.parametrize("case", ["count", "memory", "single", "off"])
+def test_plans_evict_the_least_recently_used_run(case, monkeypatch):
+    monkeypatch.setattr(stretches, "Graphed", CpuReplay)
+    tally = types.SimpleNamespace(graph_captures=0, graph_replays=0)
+    budget = stretches._MEMORY_SHARE * CpuReplay.device_memory(None)
+    plans = stretches.Plans(tally, limit=2 if case == "count" else None)
+    if case == "off":
+        plans.graphs = False
+        run = _plan(plans, 1)
+        assert type(run) is stretches.Eager and len(plans) == 0
+        return
+    if case == "single":
+        a = _plan(plans, 1)
+        a.nbytes = 2 * budget
+        assert _plan(plans, 1) is a and list(plans.values()) == [a]
+        b = _plan(plans, 2)
+        b.nbytes = 2 * budget
+        assert _plan(plans, 2) is b and list(plans.values()) == [b]
+        return
+    a, b = _plan(plans, 1), _plan(plans, 2)
+    assert isinstance(a, CpuReplay) and a is not b
+    assert _plan(plans, 1) is a  # a is now the most recently used
+    if case == "memory":
+        a.nbytes = b.nbytes = budget / 2  # at the budget, not over it
+        c = _plan(plans, 3)
+        assert list(plans.values()) == [b, a, c]
+        c.nbytes = 1
+        assert _plan(plans, 1) is a  # over the budget: b, the oldest, goes
+        assert list(plans.values()) == [c, a]
+    else:
+        c = _plan(plans, 3)
+        assert list(plans.values()) == [a, c]
+    key = next(reversed(plans))
+    assert key[-1] == (("x", torch.float32, (3,) if case == "count" else (1,), (1,)),)

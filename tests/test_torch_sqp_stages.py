@@ -33,8 +33,9 @@ from sqpsolver_tpu_torch._lanes import any_lane
 from sqpsolver_tpu_torch.algorithms import sqp_tr
 from sqpsolver_tpu_torch.models.acopf import acopf_polar, load_scenarios
 from sqpsolver_tpu_torch.models.power import case9
+from sqpsolver_tpu_torch.ops import qp_ipm, stretches
 
-from qp_batches import CpuReplay
+from qp_batches import CpuReplay, trip_plans
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -135,18 +136,20 @@ def test_stretches_give_the_parents_answers(name, capsys):
 
 @pytest.fixture
 def stand_in(monkeypatch):
-    """The CPU stand-in for CUDA-graphed stage runs, with fresh counters;
-    ``plain(fn)`` runs ``fn`` with the stage graphs switched off."""
-    monkeypatch.setattr(sqp_tr, "Graphed", CpuReplay)
+    """The CPU stand-in for CUDA-graphed stage runs, with fresh counters and
+    the QP trip's runs left plain; ``plain(fn)`` runs ``fn`` with every
+    solver's stage graphs switched off."""
+    monkeypatch.setattr(stretches, "Graphed", CpuReplay)
+    monkeypatch.setattr(qp_ipm, "_PLANS", trip_plans(graphs=False))
     monkeypatch.setattr(sqp_tr.stage_graphs, "graph_captures", 0)
     monkeypatch.setattr(sqp_tr.stage_graphs, "graph_replays", 0)
 
     def plain(fn):
-        monkeypatch.setattr(sqp_tr, "_STAGE_GRAPHS", False)
+        monkeypatch.setattr(stretches.Plans, "graphs", False)
         try:
             return _solved(fn)
         finally:
-            monkeypatch.setattr(sqp_tr, "_STAGE_GRAPHS", True)
+            monkeypatch.setattr(stretches.Plans, "graphs", True)
 
     return plain
 
